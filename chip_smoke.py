@@ -19,7 +19,24 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
                 ticks: wall time, ticks/s, FCT slowdown, drops, and the
                 `bfc_fused` launch count, which must equal the simulated
                 ticks.
-5. report    -- one `kernels` JSON line, then the device JSON line last.
+5. lm-kernels -- `flash_attention` (bf16 at the prefill shape, f32 at four
+                small shapes: causal and not, hd 256 with a sliding
+                window, hd 96) and `rglru_scan` (at the
+                prefill shape and a small one) against their plain torch
+                versions within the stated tolerances; CUDA-event timings
+                of kernel, plain version and SDPA, and the bounds.
+6. lm-prefill -- full-width recurrentgemma-2b in bf16 (random weights from
+                a seeded generator on the card): `make_prefill_step` at
+                B=2, S=4096; wall time, tokens/s, finite logits, and exactly
+                8 `flash_attention` and 18 `rglru_scan` launches.
+7. lm-consistency -- the same model in f32 (TF32 off): the last-token
+                logits and the caches of a 2560-token prefill (kernels)
+                against the decode step fed the prompt token by token
+                (plain torch), relative error <= 1e-3.
+8. lm-serve  -- `BFCServer` on the bf16 model, 8 slots, 16 requests from 4
+                clients, 16 new tokens each: all complete; tokens/s of
+                this toy load (a smoke result, not a serving benchmark).
+9. report    -- one `kernels` JSON line, then the device JSON line last.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero
 without a result when CUDA is unavailable or the port is not beside it.
@@ -54,6 +71,38 @@ INT32_OPS_PER_S = 33.5e12
 OPS_PER_ELEMENT = 14
 PAPER_DRAIN = 20_000
 GOLDEN_WORKERS = 4
+
+# LM slice: recurrentgemma-2b prefill + BFCServer decode
+LM_ARCH = "recurrentgemma-2b"
+PREFILL_B, PREFILL_S = 2, 4096
+CONSISTENCY_S = 2560              # longer than the 2048-token window
+SERVE = dict(n_slots=8, max_len=128, requests=16, max_new=16)
+# (B, H, K, S, T, hd, causal, window): the prefill's local attention, then
+# small float32 cases: causal with GQA; non-causal cross, T != S; the
+# path's hd = 256 and sliding window over 5 q tiles and 10 kv tiles, some
+# of them skipped; phi3-mini's hd = 96
+FLASH_PATH = (2, 10, 1, 4096, 4096, 256, True, 2048)
+FLASH_SMALL = [(2, 4, 2, 128, 128, 64, True, 0),
+               (1, 8, 4, 128, 256, 64, False, 0),
+               (1, 2, 1, 320, 320, 256, True, 100),
+               (1, 4, 4, 160, 160, 96, True, 0)]
+SCAN_PATH = (2, 4096, 2560)       # the prefill's RG-LRU scan (B, S, W)
+SCAN_SMALL = (3, 72, 96)          # S and W not multiples of the unroll
+                                  # (16) and block (64): the ragged edges
+# Tolerances (atol, rtol), |got - want| <= atol + rtol * |want|: attention
+# in float32 2e-5 as the JAX package's kernel test (tests/test_kernels.py:51);
+# in bf16 both sides accumulate in float32 and round the output once, so
+# they differ by at most one bf16 ulp (2^-7 of |want| at most) plus the
+# float32 differences: 1e-2 relative, 4e-3 absolute for outputs near 0. The
+# scan 1e-4 (the kernel sums sequentially, the plain version in the chunked
+# cumsum form)
+FLASH_TOL = {"bfloat16": (4e-3, 1e-2), "float32": (2e-5, 2e-5)}
+SCAN_TOL = (1e-4, 1e-4)
+LM_REL_TOL = 1e-3                 # lm-consistency: max|d| / max|ref|
+# H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, and float32
+# outside the tensor cores (the scan's exp and multiply-add)
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 
 def say(*parts) -> None:
@@ -335,6 +384,299 @@ def phase_paper(torch):
     return launches
 
 
+def build_kernels():
+    """One nvcc per kernel source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.bfc_step import bfc_step
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru import rglru
+    t0 = time.perf_counter()
+    mods = (bfc_step, flash_attention, rglru)
+    with ThreadPoolExecutor(len(mods)) as ex:
+        paths = list(ex.map(lambda m: m.build(), mods))
+    say(f"[setup] built {', '.join(p.name for p in paths)} in "
+        f"{time.perf_counter() - t0:.2f}s")
+    for m in mods:
+        for line in nvcc.build_info[str(m.SOURCE)]["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"[setup] ptxas {m.SOURCE.name}: {line.strip()}")
+
+
+def within(torch, got, want, tol) -> float:
+    """max |got - want|; raises unless |got - want| <= atol + rtol*|want|
+    everywhere, (atol, rtol) = tol, and every value is finite."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{tuple(got.shape)}/{got.dtype} != "
+                             f"{tuple(want.shape)}/{want.dtype}")
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError("kernel output is not finite")
+    diff = (g - w).abs()
+    atol, rtol = tol
+    if bool((diff > atol + rtol * w.abs()).any()):
+        raise AssertionError(f"max_abs_err {float(diff.max())} beyond tol "
+                             f"{tol}")
+    return float(diff.max())
+
+
+def event_ms(torch, fn, n) -> float:
+    """ms per call: CUDA events around `n` back-to-back calls, after two
+    warm-up calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(n):
+            fn()
+    return _events(torch, run, n)
+
+
+def attention_pairs(s, t, causal, window) -> int:
+    """Unmasked (q, k) pairs of one (batch, head)."""
+    q = np.arange(s)
+    hi = np.minimum(q + 1, t) if causal else np.full(s, t)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(s, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_bound(b, h, kh, s, t, hd, causal, window, itemsize):
+    flops = 4 * hd * attention_pairs(s, t, causal, window) * b * h
+    peak = BF16_FLOPS if itemsize == 2 else F32_FLOPS
+    nbytes = itemsize * hd * (2 * b * h * s + 2 * b * kh * t)
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def scan_bound(b, s, w):
+    t_bytes = (12 * b * s * w + 8 * b * w) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * b * s * w / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_inputs(torch, gen, b, h, kh, s, t, hd, dtype):
+    """q as the model hands it over: a (B,H,S,hd) view of (B,S,H,hd)."""
+    q = torch.randn((b, s, h, hd), generator=gen, device="cuda",
+                    dtype=torch.float32).to(dtype).transpose(1, 2)
+    k, v = (torch.randn((b, kh, t, hd), generator=gen, device="cuda",
+                        dtype=torch.float32).to(dtype) for _ in range(2))
+    return q, k, v
+
+
+def scan_inputs(torch, gen, b, s, w):
+    log_a = -torch.rand((b, s, w), generator=gen, device="cuda") * 0.1
+    bb = torch.randn((b, s, w), generator=gen, device="cuda")
+    h0 = torch.randn((b, w), generator=gen, device="cuda")
+    return log_a, bb, h0
+
+
+def phase_lm_kernels(torch):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rglru import rglru
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    worst = {"flash_attention": 0.0, "rglru_scan": 0.0}
+    for shape, dtype in ([(FLASH_PATH, torch.bfloat16)]
+                         + [(c, torch.float32) for c in FLASH_SMALL]):
+        b, h, kh, s, t, hd, causal, window = shape
+        q, k, v = flash_inputs(torch, gen, b, h, kh, s, t, hd, dtype)
+        args = dict(causal=causal, window=window)
+        got = fa.flash_attention(q, k, v, **args)
+        want = attention_ref(q, k, v, **args)
+        torch.cuda.synchronize()
+        name = str(dtype).split(".")[-1]
+        err = within(torch, got, want, FLASH_TOL[name])
+        say(f"[lm-kernels] flash_attention {name} {shape} max_abs_err="
+            f"{err:.3e} (atol, rtol {FLASH_TOL[name]})")
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+    for b, s, w in (SCAN_PATH, SCAN_SMALL):
+        la, bb, h0 = scan_inputs(torch, gen, b, s, w)
+        got = rglru.rglru_scan(la, bb, h0)
+        want = rglru_scan_ref(la, bb, h0)
+        torch.cuda.synchronize()
+        err = max(within(torch, g, w_, SCAN_TOL) for g, w_ in zip(got, want))
+        say(f"[lm-kernels] rglru_scan {(b, s, w)} max_abs_err={err:.3e} "
+            f"(atol, rtol {SCAN_TOL})")
+        worst["rglru_scan"] = max(worst["rglru_scan"], err)
+
+    # timings at the prefill's shapes
+    b, h, kh, s, t, hd, causal, window = FLASH_PATH
+    q, k, v = flash_inputs(torch, gen, b, h, kh, s, t, hd, torch.bfloat16)
+    args = dict(causal=causal, window=window)
+    qpos = torch.arange(s, device="cuda")[:, None]
+    kpos = torch.arange(t, device="cuda")[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - window)
+    k_rep, v_rep = (x.repeat_interleave(h // kh, dim=1) for x in (k, v))
+    qc = q.contiguous()
+    plain = [event_ms(torch, lambda: attention_ref(q, k, v, **args), 3)]
+    kern = [event_ms(torch, lambda: fa.flash_attention(q, k, v, **args), 10)
+            for _ in range(2)]
+    plain.append(event_ms(torch, lambda: attention_ref(q, k, v, **args), 3))
+    lib = event_ms(torch, lambda: F.scaled_dot_product_attention(
+        qc, k_rep, v_rep, attn_mask=mask), 10)
+    b_ms, b_by = flash_bound(*FLASH_PATH, itemsize=2)
+    timing = {"flash_attention": {
+        "ms": min(kern), "plain_ms": min(plain), "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": lib}}
+    say(f"[lm-kernels] time flash_attention bf16 {FLASH_PATH}: kernel "
+        + "/".join(f"{x:.4f}" for x in kern) + " ms, plain "
+        + "/".join(f"{x:.4f}" for x in plain) + f" ms, SDPA (bool mask) "
+        f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"{attention_pairs(s, t, causal, window)} unmasked pairs per (b,h)")
+    la, bb, h0 = scan_inputs(torch, gen, *SCAN_PATH)
+    plain = [event_ms(torch, lambda: rglru_scan_ref(la, bb, h0), 5)]
+    kern = [event_ms(torch, lambda: rglru.rglru_scan(la, bb, h0), 20)
+            for _ in range(2)]
+    plain.append(event_ms(torch, lambda: rglru_scan_ref(la, bb, h0), 5))
+    b_ms, b_by = scan_bound(*SCAN_PATH)
+    timing["rglru_scan"] = {"ms": min(kern), "plain_ms": min(plain),
+                            "bound_ms": b_ms, "bound_by": b_by,
+                            "library_ms": None}
+    say(f"[lm-kernels] time rglru_scan {SCAN_PATH}: kernel "
+        + "/".join(f"{x:.4f}" for x in kern) + " ms, plain "
+        + "/".join(f"{x:.4f}" for x in plain)
+        + f" ms, bound {b_ms:.4f} ms ({b_by})")
+    return worst, timing
+
+
+def lm_reset():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru import ops as lru_ops
+    fa_ops.reset_launches()
+    lru_ops.reset_launches()
+
+
+def lm_launches():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru import ops as lru_ops
+    return {**fa_ops.launches, **lru_ops.launches}
+
+
+def phase_lm_prefill(torch):
+    from repro_torch import configs
+    from repro_torch.models import model, nn
+    from repro_torch.runtime import steps
+    cfg = configs.get(LM_ARCH)
+    t0 = time.perf_counter()
+    params = model.init_model(
+        cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_full, rem = cfg.layer_plan
+    say(f"[lm-prefill] {cfg.name} {str(cfg.param_dtype).split('.')[-1]}: "
+        f"{nn.count_params(params)} parameters, {n_full} units of "
+        f"{cfg.pattern} + {rem}; init {time.perf_counter() - t0:.2f}s")
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S))).cuda()
+    prefill = steps.make_prefill_step(cfg)
+    prefill(params, tokens)                       # warm-up (cuBLAS, build)
+    torch.cuda.synchronize()
+    lm_reset()                     # counts of the main path's run only
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = lm_launches()
+    n_tok = PREFILL_B * PREFILL_S
+    say(f"[lm-prefill] B={PREFILL_B} S={PREFILL_S}: wall={wall:.4f}s "
+        f"prefill_tokens_per_s={n_tok / wall:.1f} launches={launches} "
+        f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    n_local = sum(cfg.block_kind(i) == "local" for i in range(cfg.n_layers))
+    n_rec = sum(cfg.block_kind(i) == "rec" for i in range(cfg.n_layers))
+    if launches != {"flash_attention": n_local, "rglru_scan": n_rec} or \
+            (n_local, n_rec) != (8, 18):
+        raise AssertionError(f"prefill launched {launches}, expected "
+                             f"flash_attention 8 and rglru_scan 18")
+    if tuple(logits.shape) != (PREFILL_B, 1, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
+                             "finite or of the wrong shape")
+    if cache["rem_1"]["h"].shape != (PREFILL_B, cfg.rnn_w):
+        raise AssertionError("prefill cache has the wrong layout")
+    return cfg, params, launches
+
+
+def rel_err(torch, got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def phase_lm_consistency(torch):
+    """Prefill (kernels) against the decode step fed the prompt token by
+    token (plain torch): an independent path through the same weights."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    from repro_torch.runtime import steps
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get(LM_ARCH).with_(param_dtype=torch.float32,
+                                     compute_dtype=torch.float32)
+    params = model.init_model(
+        cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 1)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, CONSISTENCY_S))).cuda()
+    t0 = time.perf_counter()
+    lp, cp = steps.make_prefill_step(cfg)(params, tokens)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    decode = steps.make_decode_step(cfg)
+    cd = model.init_cache(cfg, 1, CONSISTENCY_S, device="cuda")
+    t0 = time.perf_counter()
+    for i in range(CONSISTENCY_S):
+        ld, cd = decode(params, cd, tokens[:, i:i + 1],
+                        torch.full((1,), i, device="cuda"))
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    errs = {"logits": rel_err(torch, lp, ld)}
+    blocks = [(f"units.{u}.{b}", cp["units"][u][b], cd["units"][u][b])
+              for u in range(len(cp["units"])) for b in cp["units"][u]]
+    blocks += [(k, cp[k], cd[k]) for k in cp if k != "units"]
+    for name, a, d in blocks:
+        for leaf in a:
+            errs[f"{name}.{leaf}"] = rel_err(torch, d[leaf], a[leaf])
+    worst = max(errs, key=errs.get)
+    top1 = (int(lp[0, -1].argmax()), int(ld[0, -1].argmax()))
+    say(f"[lm-consistency] f32 S={CONSISTENCY_S}: prefill {t_prefill:.2f}s, "
+        f"{CONSISTENCY_S} decode steps {t_decode:.2f}s; max|dlogit|/max|logit|"
+        f"={errs['logits']:.3e}; worst cache leaf {worst} {errs[worst]:.3e} "
+        f"over {len(errs) - 1} leaves (tol {LM_REL_TOL}); top-1 prefill/"
+        f"decode {top1[0]}/{top1[1]} (information only)")
+    bad = {k: v for k, v in errs.items() if not v <= LM_REL_TOL}
+    if bad:
+        raise AssertionError(f"prefill and decode disagree: {bad}")
+    return errs
+
+
+def phase_lm_serve(torch, cfg, params):
+    from repro_torch.launch import serve
+    from repro_torch.runtime import serving
+    srv = serving.BFCServer(cfg, params, n_slots=SERVE["n_slots"],
+                            max_len=SERVE["max_len"])
+    reqs = serve.make_requests(cfg.vocab, SERVE["requests"],
+                               SERVE["max_new"])
+    lm_reset()
+    done, wall = serve.serve(srv, reqs)
+    toks = sum(len(r.out) for r in done)
+    st = srv.stats
+    say(f"[lm-serve] {cfg.name} bf16, {SERVE['n_slots']} slots: "
+        f"{st.completed}/{len(reqs)} requests, {toks} tokens in {wall:.2f}s "
+        f"= {toks / wall:.1f} tokens/s over {st.ticks} ticks "
+        f"({wall / st.ticks * 1e3:.2f} ms/tick); pauses={st.pauses_sent} "
+        f"resumes={st.resumes_sent} peak_pending={st.peak_pending}; "
+        f"LM kernel launches {lm_launches()} (decode is plain torch)")
+    if st.completed != len(reqs) or sorted(r.rid for r in done) != \
+            list(range(len(reqs))) or \
+            any(len(r.out) != SERVE["max_new"] for r in done):
+        raise AssertionError("not every request completed with max_new "
+                             "tokens")
+    if any(not 0 <= t < cfg.vocab for r in done for t in r.out):
+        raise AssertionError("served token out of the vocabulary")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -342,33 +684,40 @@ def main() -> int:
               "runs the port on an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels.bfc_step import bfc_step
 
     smi = smi_line()
     say(f"[setup] device={torch.cuda.get_device_name(0)} "
         f"count={torch.cuda.device_count()} torch={torch.__version__} "
         f"cuda={torch.version.cuda}")
     say(f"[setup] nvidia-smi: {smi}")
-    t0 = time.perf_counter()
-    bfc_step.build()
-    say(f"[setup] built {bfc_step.build_info['path']} in "
-        f"{time.perf_counter() - t0:.2f}s")
-    for line in bfc_step.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"[setup] ptxas: {line.strip()}")
+    build_kernels()
 
     worst, timing = phase_kernels(torch)
     phase_golden(torch)
     launches = phase_paper(torch)
+    lm_worst, lm_timing = phase_lm_kernels(torch)
+    cfg, params, lm_counts = phase_lm_prefill(torch)
+    phase_lm_consistency(torch)
+    phase_lm_serve(torch, cfg, params)
 
-    src = "src/repro_torch/kernels/bfc_step/csrc/bfc_step.cu"
-    replaces = {"bfc_fused": "src/repro/kernels/bfc_step/bfc_step.py:146",
-                "bfc_decide": "src/repro/kernels/bfc_step/bfc_step.py:75"}
+    kdir = "src/repro_torch/kernels"
+    rows = [("bfc_fused", f"{kdir}/bfc_step/csrc/bfc_step.cu",
+             "src/repro/kernels/bfc_step/bfc_step.py:146", launches),
+            ("bfc_decide", f"{kdir}/bfc_step/csrc/bfc_step.cu",
+             "src/repro/kernels/bfc_step/bfc_step.py:75", launches),
+            ("flash_attention",
+             f"{kdir}/flash_attention/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/flash_attention.py:86",
+             lm_counts),
+            ("rglru_scan", f"{kdir}/rglru/csrc/rglru.cu",
+             "src/repro/kernels/rglru/rglru.py:55", lm_counts)]
+    worst.update(lm_worst)
+    timing = {**{k: {**v, "library_ms": None} for k, v in timing.items()},
+              **lm_timing}
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": replaces[name], "launches": launches[name],
-                "max_abs_err": worst[name], **timing[name],
-                "library_ms": None}
-               for name in ("bfc_fused", "bfc_decide")]
+                "replaces": replaces, "launches": counts[name],
+                "max_abs_err": worst[name], **timing[name]}
+               for name, src, replaces, counts in rows]
     say(f"[report] nvidia-smi: {smi}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

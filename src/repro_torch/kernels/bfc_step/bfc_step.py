@@ -3,8 +3,8 @@
 `csrc/bfc_step.cu` holds the kernels (one warp per port row; see the note
 at the top of that file for what they replace and what bounds them). This
 module compiles it with `nvcc` for `sm_90a` into a shared library with a
-plain C interface at first use, loads it with `ctypes`, and wraps each
-entry point:
+plain C interface at first use (`kernels.nvcc`), loads it with `ctypes`,
+and wraps each entry point:
 
 * `bfc_fused`  -- threshold + DRR/SRF pick + occupancy update, called once
   per simulated tick by `sim.phases.ctx.derive` (through `ops.fused`);
@@ -19,27 +19,17 @@ this module on machines with no `nvcc` and no card.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from .. import nvcc
 from .ref import BIG, packed_sentinel
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "bfc_step.cu"
-# Build output, listed in .gitignore; keyed by a hash of source + flags.
-BUILD_DIR = Path(__file__).resolve().parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Kernel launches per entry point since the last `reset_launches()`.
 launches = {"bfc_fused": 0, "bfc_decide": 0}
-# The library `build` returned, and what its compile printed (ptxas
-# register/spill report; empty when an earlier build was reused).
-build_info = {"log": "", "path": None}
 
 _lib = None
 
@@ -49,38 +39,9 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _nvcc() -> str:
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the BFC switch kernels are built "
-                           "from csrc/bfc_step.cu at first use on a CUDA "
-                           "machine")
-    return found
-
-
 def build() -> Path:
-    """Compile `csrc/bfc_step.cu` (once per source/flags hash) and return
-    the shared library's path. Concurrent builders each write a private
-    temporary file and rename it into place."""
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libbfc_step-{tag}.so"
-    if out.exists():
-        build_info["path"] = out
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}"
-                           f"{proc.stderr}")
-    os.replace(tmp, out)
-    build_info.update(log=proc.stdout + proc.stderr, path=out)
-    return out
+    """Compile `csrc/bfc_step.cu` (see `kernels.nvcc.build`)."""
+    return nvcc.build(SOURCE)
 
 
 def _load():

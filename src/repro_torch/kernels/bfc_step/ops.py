@@ -7,17 +7,14 @@ counts kernel launches per entry point (the plain version counts none).
 """
 from __future__ import annotations
 
+from .. import on_card
 from . import bfc_step
 from .bfc_step import launches, reset_launches  # noqa: F401  (re-export)
 from .ref import bfc_decide_ref, bfc_fused_ref
 
 
 def _on_card(t) -> bool:
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"no BFC switch-step path for device {t.device}")
+    return on_card(t, "BFC switch-step")
 
 
 def decide(occ, qpaused, ptr, *, pause_window: int):

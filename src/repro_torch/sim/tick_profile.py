@@ -26,13 +26,41 @@ from . import engine, topology, workload
 from .config import PRESETS, SimConfig
 
 
-def _kernel_events(prof):
+TOP = 12    # kernels listed by device time
+
+
+def kernel_events(prof):
     """(name, device µs) of every CUDA kernel the profiler recorded."""
     out = []
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             out.append((evt.name, evt.time_range.elapsed_us()))
     return out
+
+
+def print_breakdown(what: str, kernels, n: int, wall: float) -> bool:
+    """Print, per step of the `n` steps of `what` that took `wall` seconds:
+    device-busy time (the sum of the `kernels`' execution intervals), the
+    idle share against `wall`, the kernels launched, and the TOP kernels by
+    device time. False, said on stderr, when there are no kernels."""
+    if not kernels:
+        print(f"the profiler recorded no CUDA kernels in {what}",
+              file=sys.stderr)
+        return False
+    busy = sum(us for _, us in kernels) / 1e6
+    print(f"{what}: per step wall {wall / n * 1e3:.3f} ms, device busy "
+          f"{busy / n * 1e3:.3f} ms, idle share {1 - busy / wall:.4f}, "
+          f"{len(kernels) / n:.1f} kernels")
+    by_name, count = Counter(), Counter()
+    for name, us in kernels:
+        by_name[name] += us
+        count[name] += 1
+    print(f"  top {TOP} kernels by device time (ms per step, share of busy, "
+          "launches per step):")
+    for name, us in by_name.most_common(TOP):
+        print(f"  {us / n / 1e3:9.4f}  {us / 1e6 / busy:6.3f}  "
+              f"{count[name] / n:7.2f}  {name[:90]}")
+    return True
 
 
 def paper_case(seed: int = 0):
@@ -50,7 +78,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=256)
     ap.add_argument("--start", type=int, default=2048)
-    ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
 
@@ -73,30 +100,10 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
 
-    kernels = _kernel_events(prof)
-    if not kernels:
-        print("tick_profile: the profiler recorded no CUDA kernels",
-              file=sys.stderr)
-        return 1
-    busy_us = sum(us for _, us in kernels)
-    n = args.ticks
-    wall_ms = wall * 1e3 / n
-    busy_ms = busy_us / 1e3 / n
-    print(f"device={torch.cuda.get_device_name(0)} window=ticks "
-          f"[{args.start}, {args.start + n}) of the paper-scale bfc case")
-    print(f"per tick: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
-          f"idle share {1 - busy_ms / wall_ms:.4f}, "
-          f"{len(kernels) / n:.1f} kernels")
-    by_name = Counter()
-    count = Counter()
-    for name, us in kernels:
-        by_name[name] += us
-        count[name] += 1
-    print(f"top {args.top} kernels by device time (µs per tick, launches "
-          "per tick):")
-    for name, us in by_name.most_common(args.top):
-        print(f"  {us / n:9.3f}  {count[name] / n:6.2f}  {name[:100]}")
-    return 0
+    print(f"device={torch.cuda.get_device_name(0)} the paper-scale bfc "
+          f"case, ticks [{args.start}, {args.start + args.ticks}) profiled")
+    return 0 if print_breakdown("tick", kernel_events(prof), args.ticks,
+                                wall) else 1
 
 
 if __name__ == "__main__":

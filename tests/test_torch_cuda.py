@@ -1,6 +1,7 @@
 """The port on the card: the CUDA kernels against their plain versions,
-and one golden family end to end with the kernel launched once per
-simulated tick. Needs a CUDA device and nvcc (a CUDA kernel has no CPU
+one golden family end to end with the kernel launched once per simulated
+tick, and the reduced recurrentgemma prefill through the LM kernels
+against the plain path on the CPU. Needs a CUDA device and nvcc (a CUDA kernel has no CPU
 mode), so every test here carries the `cuda` marker and skips elsewhere;
 run them on a GPU machine with
 
@@ -12,8 +13,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.kernels.bfc_step import ops  # noqa: E402
 from repro_torch.kernels.bfc_step import ref as tref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.rglru import ops as lru_ops  # noqa: E402
+from repro_torch.kernels.rglru.ref import rglru_scan_ref  # noqa: E402
+from repro_torch.models import model  # noqa: E402
+from repro_torch.runtime import steps  # noqa: E402
 from repro_torch.sim.trace import golden  # noqa: E402
 
 pytestmark = [pytest.mark.tier1, pytest.mark.cuda]
@@ -78,3 +86,82 @@ def test_golden_family_on_card(card):
     out = golden.run_family("bfc", card)
     assert golden.compare("bfc", out) == []
     assert ops.launches["bfc_fused"] == out["active_ticks"] + 1
+
+
+@pytest.mark.parametrize("b,h,kh,s,t,hd,causal,window,dtype,tol", [
+    (2, 10, 1, 1024, 1024, 256, True, 256, "bfloat16", (4e-3, 1e-2)),
+    (1, 8, 4, 130, 200, 64, False, 0, "float32", (2e-5, 2e-5)),
+    (2, 4, 4, 96, 96, 16, True, 0, "float32", (2e-5, 2e-5)),
+    (1, 2, 1, 320, 320, 256, True, 100, "float32", (2e-5, 2e-5)),
+    (1, 4, 4, 160, 160, 96, True, 0, "float32", (2e-5, 2e-5)),   # phi3-mini
+])
+def test_flash_attention_matches_plain_version(card, b, h, kh, s, t, hd,
+                                               causal, window, dtype, tol):
+    """Tolerance (atol, rtol): f32 2e-5 as tests/test_kernels.py:51; bf16
+    one output ulp (rtol 1e-2) plus 4e-3 near 0, as `chip_smoke.py`."""
+    gen = torch.Generator(card).manual_seed(s + t)
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, s, h, hd), generator=gen, device=card).to(
+        dt).transpose(1, 2)                   # the model's strided layout
+    k, v = (torch.randn((b, kh, t, hd), generator=gen, device=card).to(dt)
+            for _ in range(2))
+    before = fa_ops.launches["flash_attention"]
+    got = fa_ops.attend(q, k, v, causal=causal, window=window)
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.launches["flash_attention"] == before + 1
+    assert got.dtype == dt and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol[0],
+                               rtol=tol[1])
+
+
+@pytest.mark.parametrize("b,s,w", [(2, 1024, 2560), (3, 72, 96)])
+def test_rglru_scan_matches_plain_version(card, b, s, w):
+    """Tolerance 1e-4: the kernel sums sequentially, the plain version in
+    the chunked cumsum form."""
+    gen = torch.Generator(card).manual_seed(b * s)
+    log_a = -torch.rand((b, s, w), generator=gen, device=card) * 0.1
+    bb = torch.randn((b, s, w), generator=gen, device=card)
+    h0 = torch.randn((b, w), generator=gen, device=card)
+    before = lru_ops.launches["rglru_scan"]
+    got = lru_ops.scan(log_a, bb, h0)
+    want = rglru_scan_ref(log_a, bb, h0)
+    torch.cuda.synchronize()
+    assert lru_ops.launches["rglru_scan"] == before + 1
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, atol=1e-4, rtol=1e-4)
+
+
+def test_lm_kernels_reject_bad_operands(card):
+    x = torch.zeros((1, 2, 16, 48), device=card)      # head_dim 48
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.attend(x, x, x)
+    with pytest.raises(TypeError):
+        lru_ops.scan(*(torch.zeros((1, 8, 4), device=card,
+                                   dtype=torch.float16) for _ in range(2)),
+                     torch.zeros((1, 4), device=card))
+
+
+def test_reduced_recurrentgemma_prefill_on_card(card):
+    """The prefill through both LM kernels on the card agrees with the
+    plain path on the CPU (float32, TF32 off; tolerance 1e-4)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.reduced("recurrentgemma-2b")
+    params = model.init_model(cfg, device="cpu", seed=1)
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 256)))
+    want_logits, want_cache = steps.make_prefill_step(cfg)(params, tok)
+    fa_ops.reset_launches()
+    lru_ops.reset_launches()
+    got_logits, got_cache = steps.make_prefill_step(cfg)(
+        params.to(card), tok.to(card))
+    torch.cuda.synchronize()
+    assert fa_ops.launches["flash_attention"] == 1
+    assert lru_ops.launches["rglru_scan"] == 2 + 1     # unit + remainder
+    torch.testing.assert_close(got_logits.cpu(), want_logits, atol=1e-4,
+                               rtol=1e-4)
+    for name in ("b0", "b1", "b2"):
+        for leaf, want in want_cache["units"][0][name].items():
+            torch.testing.assert_close(got_cache["units"][0][name][leaf].cpu(),
+                                       want, atol=1e-4, rtol=1e-4)

@@ -176,3 +176,17 @@ def test_golden_pin_matches_jax():
     assert tgolden.pinned_meta() == jgolden.pinned_meta()
     assert tgolden.GOLDEN_N_TICKS == jgolden.GOLDEN_N_TICKS
     assert tgolden.FIXTURE_DIR == jgolden.FIXTURE_DIR
+
+
+def test_profile_breakdown_sums_device_time(capsys):
+    """The profilers' report: busy time, idle share and top kernels per
+    step from (name, device µs) pairs; no kernels is a failure."""
+    from repro_torch.sim import tick_profile
+    kernels = [("a", 100.0), ("b", 300.0), ("a", 100.0)]
+    assert tick_profile.print_breakdown("tick", kernels, 2, 1e-3)
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == ("tick: per step wall 0.500 ms, device busy 0.250 ms, "
+                      "idle share 0.5000, 1.5 kernels")
+    assert [line.split() for line in out[2:]] == [
+        ["0.1500", "0.600", "0.50", "b"], ["0.1000", "0.400", "1.00", "a"]]
+    assert not tick_profile.print_breakdown("tick", [], 1, 1.0)

@@ -33,6 +33,15 @@ def test_modules_import_with_jax_and_repro_blocked():
         "import repro_torch.sim.engine, repro_torch.kernels.bfc_step.ops\n"
         "import repro_torch.testing, repro_torch.sim.metrics\n"
         "import repro_torch.sim.trace.golden, repro_torch.core.backpressure\n"
+        "import repro_torch.configs, repro_torch.models.model\n"
+        "import repro_torch.models.attention, repro_torch.models.rglru\n"
+        "import repro_torch.models.layers, repro_torch.models.nn\n"
+        "import repro_torch.runtime.steps, repro_torch.runtime.serving\n"
+        "import repro_torch.launch.serve\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.kernels.rglru.ops\n"
+        "from repro_torch.launch import serve\n"
+        "assert serve.build_parser().parse_args([]).device == 'cuda'\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -67,6 +76,26 @@ def test_engine_run_refuses_to_fall_back_to_cpu(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_lm_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    """The LM entry points default to the card and raise without one."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.reduced("recurrentgemma-2b")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "recurrentgemma-2b"])
+    assert serve.build_parser().parse_args([]).device == "cuda"
+    assert serve.build_parser().parse_args(["--no-reduced"]).reduced is False
+    srv, done = serve.main(["--arch", "recurrentgemma-2b", "--device", "cpu",
+                            "--requests", "3", "--max-new", "2"])
+    assert srv.stats.completed == 3 and all(len(r.out) == 2 for r in done)
 
 
 def test_chip_smoke_refuses_without_cuda(monkeypatch):
