@@ -36,7 +36,21 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
 8. lm-serve  -- `BFCServer` on the bf16 model, 8 slots, 16 requests from 4
                 clients, 16 new tokens each: all complete; tokens/s of
                 this toy load (a smoke result, not a serving benchmark).
-9. report    -- one `kernels` JSON line, then the device JSON line last.
+9. rwkv-kernels -- `wkv` against its plain version (the chunked form): bf16
+                r, k, v at the prefill shape (2, 4096, 40, 64) and f32 at
+                three small shapes, out and hT within 1e-5 of max|ref|;
+                CUDA-event timings of kernel and plain version, the bound.
+10. rwkv-prefill -- full-width rwkv6-3b in bf16 (random weights from a
+                seeded generator on the card), parameters within the JAX
+                nameplate band: `make_prefill_step` at B=2, S=4096; wall
+                time, tokens/s, finite logits, and exactly 32 `wkv` and no
+                other LM kernel launches.
+11. rwkv-consistency -- the same model in f32 (TF32 off): a 1024-token
+                prefill (kernel) against the decode step fed the prompt
+                token by token (plain torch), relative error <= 1e-3.
+12. rwkv-serve -- `BFCServer` on the bf16 rwkv6-3b, the lm-serve load: all
+                complete (a smoke result).
+13. report   -- one `kernels` JSON line, then the device JSON line last.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero
 without a result when CUDA is unavailable or the port is not beside it.
@@ -99,6 +113,18 @@ SCAN_SMALL = (3, 72, 96)          # S and W not multiples of the unroll
 FLASH_TOL = {"bfloat16": (4e-3, 1e-2), "float32": (2e-5, 2e-5)}
 SCAN_TOL = (1e-4, 1e-4)
 LM_REL_TOL = 1e-3                 # lm-consistency: max|d| / max|ref|
+
+# RWKV slice: rwkv6-3b prefill + BFCServer decode
+RWKV_ARCH = "rwkv6-3b"
+RWKV_CONSISTENCY_S = 1024         # 64 chunks of the plain version's 16
+RWKV_PARAMS = (2.5e9, 3.1e9)      # tests/test_models_smoke.py:122
+WKV_PATH = (2, 4096, 40, 64)      # the prefill's WKV (B, S, H, D), bf16
+WKV_SMALL = [(1, 128, 4, 32), (2, 32, 1, 64), (2, 64, 2, 64)]   # f32; the
+                                  # JAX package's kernel test shapes
+# max|d| / max|ref| on out and hT: the kernel runs the recurrence token by
+# token, the plain version in 16-token chunks; the JAX package's two forms
+# are 3.9e-7 apart in float32 at (1, 2048, 2, 64)
+WKV_REL_TOL = 1e-5
 # H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, and float32
 # outside the tensor cores (the scan's exp and multiply-add)
 BF16_FLOPS = 989e12
@@ -391,8 +417,9 @@ def build_kernels():
     from repro_torch.kernels.bfc_step import bfc_step
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rglru import rglru
+    from repro_torch.kernels.rwkv6 import wkv
     t0 = time.perf_counter()
-    mods = (bfc_step, flash_attention, rglru)
+    mods = (bfc_step, flash_attention, rglru, wkv)
     with ThreadPoolExecutor(len(mods)) as ex:
         paths = list(ex.map(lambda m: m.build(), mods))
     say(f"[setup] built {', '.join(p.name for p in paths)} in "
@@ -542,30 +569,103 @@ def phase_lm_kernels(torch):
     return worst, timing
 
 
+def wkv_inputs(torch, gen, b, s, h, d, dtype):
+    """r, k, v in `dtype`; log w in the model's clipped range; a non-zero
+    h0."""
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    r, k, v = (normal(b, s, h, d).mul(0.5).to(dtype) for _ in range(3))
+    logw = -normal(b, s, h, d).clamp(-10.0, 1.6).exp().clamp(1e-6, 5.0)
+    return r, k, v, logw, normal(h, d) * 0.3, normal(b, h, d, d) * 0.2
+
+
+def wkv_bound(b, s, h, d, itemsize):
+    """Bytes: r, k, v in the input type, logw, u, h0 read and out, hT
+    written once, float32 otherwise. Operations per token and head: the
+    read-out r.S (2 D^2) and the update w*S + k^T v (3 D^2), the bonus
+    (r*u*k summed, times v: 4 D) and exp(logw) (D), float32 on the CUDA
+    cores."""
+    n = b * s * h * d
+    nbytes = 3 * itemsize * n + 4 * (2 * n + h * d + 2 * b * h * d * d)
+    flops = b * s * h * (5 * d * d + 5 * d)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_rwkv_kernels(torch):
+    from repro_torch.kernels.rwkv6 import wkv
+    from repro_torch.kernels.rwkv6.ref import wkv_chunked_ref
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    worst = 0.0
+    for shape, dtype in ([(WKV_PATH, torch.bfloat16)]
+                         + [(c, torch.float32) for c in WKV_SMALL]):
+        x = wkv_inputs(torch, gen, *shape, dtype)
+        got = wkv.wkv(*x)
+        want = wkv_chunked_ref(*x)
+        torch.cuda.synchronize()
+        rel, err = 0.0, 0.0
+        for g, w in zip(got, want):
+            if g.shape != w.shape or g.dtype != w.dtype or \
+                    not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"wkv {shape}: {tuple(g.shape)}/"
+                                     f"{g.dtype} != {tuple(w.shape)}/"
+                                     f"{w.dtype} or not finite")
+            rel = max(rel, rel_err(torch, g, w))
+            err = max(err, float((g - w).abs().max()))
+        name = str(dtype).split(".")[-1]
+        say(f"[rwkv-kernels] wkv {name} {shape} max_abs_err={err:.3e} "
+            f"max|d|/max|ref|={rel:.3e} (tol {WKV_REL_TOL})")
+        if not rel <= WKV_REL_TOL:
+            raise AssertionError(f"wkv {shape} differs from its plain "
+                                 f"version: {rel:.3e}")
+        worst = max(worst, err)
+
+    x = wkv_inputs(torch, gen, *WKV_PATH, torch.bfloat16)
+    plain = [event_ms(torch, lambda: wkv_chunked_ref(*x), 3)]
+    kern = [event_ms(torch, lambda: wkv.wkv(*x), 20) for _ in range(2)]
+    plain.append(event_ms(torch, lambda: wkv_chunked_ref(*x), 3))
+    b_ms, b_by = wkv_bound(*WKV_PATH, itemsize=2)
+    timing = {"ms": min(kern), "plain_ms": min(plain), "bound_ms": b_ms,
+              "bound_by": b_by, "library_ms": None}
+    say(f"[rwkv-kernels] time wkv bf16 {WKV_PATH}: kernel "
+        + "/".join(f"{t:.4f}" for t in kern) + " ms, plain "
+        + "/".join(f"{t:.4f}" for t in plain)
+        + f" ms, bound {b_ms:.4f} ms ({b_by}); no single PyTorch call")
+    return worst, timing
+
+
 def lm_reset():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rglru import ops as lru_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
     fa_ops.reset_launches()
     lru_ops.reset_launches()
+    wkv_ops.reset_launches()
 
 
 def lm_launches():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rglru import ops as lru_ops
-    return {**fa_ops.launches, **lru_ops.launches}
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    return {**fa_ops.launches, **lru_ops.launches, **wkv_ops.launches}
 
 
-def phase_lm_prefill(torch):
+def run_prefill(torch, tag, arch):
+    """Full-width `arch` in bf16 from a seeded generator on the card: one
+    warm-up prefill at (PREFILL_B, PREFILL_S), then one timed with the LM
+    kernels' counts set to 0 just before and read just after. Returns
+    (cfg, params, launches, logits, cache)."""
     from repro_torch import configs
     from repro_torch.models import model, nn
     from repro_torch.runtime import steps
-    cfg = configs.get(LM_ARCH)
+    cfg = configs.get(arch)
     t0 = time.perf_counter()
     params = model.init_model(
         cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(SEED))
     torch.cuda.synchronize()
     n_full, rem = cfg.layer_plan
-    say(f"[lm-prefill] {cfg.name} {str(cfg.param_dtype).split('.')[-1]}: "
+    say(f"[{tag}] {cfg.name} {str(cfg.param_dtype).split('.')[-1]}: "
         f"{nn.count_params(params)} parameters, {n_full} units of "
         f"{cfg.pattern} + {rem}; init {time.perf_counter() - t0:.2f}s")
     rng = np.random.default_rng(SEED)
@@ -574,6 +674,7 @@ def phase_lm_prefill(torch):
     prefill = steps.make_prefill_step(cfg)
     prefill(params, tokens)                       # warm-up (cuBLAS, build)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     lm_reset()                     # counts of the main path's run only
     t0 = time.perf_counter()
     logits, cache = prefill(params, tokens)
@@ -581,20 +682,45 @@ def phase_lm_prefill(torch):
     wall = time.perf_counter() - t0
     launches = lm_launches()
     n_tok = PREFILL_B * PREFILL_S
-    say(f"[lm-prefill] B={PREFILL_B} S={PREFILL_S}: wall={wall:.4f}s "
+    say(f"[{tag}] B={PREFILL_B} S={PREFILL_S}: wall={wall:.4f}s "
         f"prefill_tokens_per_s={n_tok / wall:.1f} launches={launches} "
         f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f}")
-    n_local = sum(cfg.block_kind(i) == "local" for i in range(cfg.n_layers))
-    n_rec = sum(cfg.block_kind(i) == "rec" for i in range(cfg.n_layers))
-    if launches != {"flash_attention": n_local, "rglru_scan": n_rec} or \
-            (n_local, n_rec) != (8, 18):
-        raise AssertionError(f"prefill launched {launches}, expected "
-                             f"flash_attention 8 and rglru_scan 18")
     if tuple(logits.shape) != (PREFILL_B, 1, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
                              "finite or of the wrong shape")
+    return cfg, params, launches, logits, cache
+
+
+def phase_lm_prefill(torch):
+    cfg, params, launches, _, cache = run_prefill(torch, "lm-prefill",
+                                                  LM_ARCH)
+    n_local = sum(cfg.block_kind(i) == "local" for i in range(cfg.n_layers))
+    n_rec = sum(cfg.block_kind(i) == "rec" for i in range(cfg.n_layers))
+    if launches != {"flash_attention": n_local, "rglru_scan": n_rec,
+                    "wkv": 0} or (n_local, n_rec) != (8, 18):
+        raise AssertionError(f"prefill launched {launches}, expected "
+                             f"flash_attention 8 and rglru_scan 18")
     if cache["rem_1"]["h"].shape != (PREFILL_B, cfg.rnn_w):
+        raise AssertionError("prefill cache has the wrong layout")
+    return cfg, params, launches
+
+
+def phase_rwkv_prefill(torch):
+    from repro_torch.models import nn
+    cfg, params, launches, _, cache = run_prefill(torch, "rwkv-prefill",
+                                                  RWKV_ARCH)
+    n = nn.count_params(params)
+    if not RWKV_PARAMS[0] <= n <= RWKV_PARAMS[1]:
+        raise AssertionError(f"{n} parameters outside the nameplate band "
+                             f"{RWKV_PARAMS}")
+    if launches != {"flash_attention": 0, "rglru_scan": 0, "wkv": 32} or \
+            cfg.n_layers != 32:
+        raise AssertionError(f"prefill launched {launches}, expected wkv "
+                             f"32 and no other LM kernel")
+    hd = cfg.rwkv_head_dim
+    if cache["units"][31]["b0"]["S"].shape != (
+            PREFILL_B, cfg.d_model // hd, hd, hd):
         raise AssertionError("prefill cache has the wrong layout")
     return cfg, params, launches
 
@@ -604,7 +730,7 @@ def rel_err(torch, got, want) -> float:
                  / want.float().abs().max().clamp_min(1e-30))
 
 
-def phase_lm_consistency(torch):
+def phase_consistency(torch, tag, arch, s):
     """Prefill (kernels) against the decode step fed the prompt token by
     token (plain torch): an independent path through the same weights."""
     from repro_torch import configs
@@ -612,21 +738,20 @@ def phase_lm_consistency(torch):
     from repro_torch.runtime import steps
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = configs.get(LM_ARCH).with_(param_dtype=torch.float32,
-                                     compute_dtype=torch.float32)
+    cfg = configs.get(arch).with_(param_dtype=torch.float32,
+                                  compute_dtype=torch.float32)
     params = model.init_model(
         cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(SEED))
     rng = np.random.default_rng(SEED + 1)
-    tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab, (1, CONSISTENCY_S))).cuda()
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, s))).cuda()
     t0 = time.perf_counter()
     lp, cp = steps.make_prefill_step(cfg)(params, tokens)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     decode = steps.make_decode_step(cfg)
-    cd = model.init_cache(cfg, 1, CONSISTENCY_S, device="cuda")
+    cd = model.init_cache(cfg, 1, s, device="cuda")
     t0 = time.perf_counter()
-    for i in range(CONSISTENCY_S):
+    for i in range(s):
         ld, cd = decode(params, cd, tokens[:, i:i + 1],
                         torch.full((1,), i, device="cuda"))
     torch.cuda.synchronize()
@@ -639,19 +764,21 @@ def phase_lm_consistency(torch):
         for leaf in a:
             errs[f"{name}.{leaf}"] = rel_err(torch, d[leaf], a[leaf])
     worst = max(errs, key=errs.get)
+    first = max(v for k, v in errs.items() if k.startswith("units.0."))
     top1 = (int(lp[0, -1].argmax()), int(ld[0, -1].argmax()))
-    say(f"[lm-consistency] f32 S={CONSISTENCY_S}: prefill {t_prefill:.2f}s, "
-        f"{CONSISTENCY_S} decode steps {t_decode:.2f}s; max|dlogit|/max|logit|"
+    say(f"[{tag}] {cfg.name} f32 S={s}: prefill {t_prefill:.2f}s, "
+        f"{s} decode steps {t_decode:.2f}s; max|dlogit|/max|logit|"
         f"={errs['logits']:.3e}; worst cache leaf {worst} {errs[worst]:.3e} "
-        f"over {len(errs) - 1} leaves (tol {LM_REL_TOL}); top-1 prefill/"
-        f"decode {top1[0]}/{top1[1]} (information only)")
+        f"over {len(errs) - 1} leaves, worst of the first unit {first:.3e} "
+        f"(tol {LM_REL_TOL}); top-1 prefill/decode {top1[0]}/{top1[1]} "
+        f"(information only)")
     bad = {k: v for k, v in errs.items() if not v <= LM_REL_TOL}
     if bad:
         raise AssertionError(f"prefill and decode disagree: {bad}")
     return errs
 
 
-def phase_lm_serve(torch, cfg, params):
+def phase_serve(torch, tag, cfg, params):
     from repro_torch.launch import serve
     from repro_torch.runtime import serving
     srv = serving.BFCServer(cfg, params, n_slots=SERVE["n_slots"],
@@ -662,7 +789,7 @@ def phase_lm_serve(torch, cfg, params):
     done, wall = serve.serve(srv, reqs)
     toks = sum(len(r.out) for r in done)
     st = srv.stats
-    say(f"[lm-serve] {cfg.name} bf16, {SERVE['n_slots']} slots: "
+    say(f"[{tag}] {cfg.name} bf16, {SERVE['n_slots']} slots: "
         f"{st.completed}/{len(reqs)} requests, {toks} tokens in {wall:.2f}s "
         f"= {toks / wall:.1f} tokens/s over {st.ticks} ticks "
         f"({wall / st.ticks * 1e3:.2f} ms/tick); pauses={st.pauses_sent} "
@@ -678,6 +805,7 @@ def phase_lm_serve(torch, cfg, params):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -697,8 +825,15 @@ def main() -> int:
     launches = phase_paper(torch)
     lm_worst, lm_timing = phase_lm_kernels(torch)
     cfg, params, lm_counts = phase_lm_prefill(torch)
-    phase_lm_consistency(torch)
-    phase_lm_serve(torch, cfg, params)
+    phase_consistency(torch, "lm-consistency", LM_ARCH, CONSISTENCY_S)
+    phase_serve(torch, "lm-serve", cfg, params)
+    del cfg, params
+    torch.cuda.empty_cache()
+    lm_worst["wkv"], lm_timing["wkv"] = phase_rwkv_kernels(torch)
+    cfg, params, rwkv_counts = phase_rwkv_prefill(torch)
+    phase_consistency(torch, "rwkv-consistency", RWKV_ARCH,
+                      RWKV_CONSISTENCY_S)
+    phase_serve(torch, "rwkv-serve", cfg, params)
 
     kdir = "src/repro_torch/kernels"
     rows = [("bfc_fused", f"{kdir}/bfc_step/csrc/bfc_step.cu",
@@ -710,7 +845,9 @@ def main() -> int:
              "src/repro/kernels/flash_attention/flash_attention.py:86",
              lm_counts),
             ("rglru_scan", f"{kdir}/rglru/csrc/rglru.cu",
-             "src/repro/kernels/rglru/rglru.py:55", lm_counts)]
+             "src/repro/kernels/rglru/rglru.py:55", lm_counts),
+            ("wkv", f"{kdir}/rwkv6/csrc/wkv.cu",
+             "src/repro/kernels/rwkv6/rwkv6.py:68", rwkv_counts)]
     worst.update(lm_worst)
     timing = {**{k: {**v, "library_ms": None} for k, v in timing.items()},
               **lm_timing}
@@ -719,6 +856,7 @@ def main() -> int:
                 "max_abs_err": worst[name], **timing[name]}
                for name, src, replaces, counts in rows]
     say(f"[report] nvidia-smi: {smi}")
+    say(f"[report] chip_smoke.py took {time.perf_counter() - t_start:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

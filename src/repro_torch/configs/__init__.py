@@ -1,9 +1,9 @@
 """Architecture registry: the 10 assigned configs + reduced smoke variants
 (torch counterpart of `repro.configs`; the arch files are data).
 
-The port builds only what its slice covers; `models.model.init_model`
-raises `NotImplementedError` for MoE, `rwkv` blocks, `mrope`/`sinusoidal`
-rope and modality frontends."""
+The port builds only what its slices cover; `models.model.init_model`
+raises `NotImplementedError` for MoE, `mrope`/`sinusoidal` rope and
+modality frontends."""
 from __future__ import annotations
 
 from typing import Dict

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain torch
 version: `bfc_step` (the simulator's per-tick switch decision),
-`flash_attention` (the LM's prefill attention) and `rglru` (the LM's
-RG-LRU recurrence). `nvcc` builds them at first use."""
+`flash_attention` (the LM's prefill attention), `rglru` (the LM's RG-LRU
+recurrence) and `rwkv6` (the LM's RWKV-6 WKV recurrence). `nvcc` builds
+them at first use."""
 from __future__ import annotations
 
 

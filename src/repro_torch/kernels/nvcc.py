@@ -1,7 +1,7 @@
 """Build a kernel source with `nvcc` into a shared library with a plain C
 interface, once per source/flags hash.
 
-Each kernel module (`bfc_step`, `flash_attention`, `rglru`) calls
+Each kernel module (`bfc_step`, `flash_attention`, `rglru`, `rwkv6`) calls
 `build(source)` at first use and loads the result with `ctypes`. The
 library goes to `build/` beside the source's package (git-ignored).
 Nothing here runs at import time: the CPU tests import the kernel modules

@@ -3,6 +3,8 @@ the card unless `--device cpu` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-2b --no-reduced --requests 16 --slots 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+        --no-reduced
 
 `--reduced` (the default) serves the small same-family config;
 `--no-reduced` serves the full published one. Weights are random, drawn

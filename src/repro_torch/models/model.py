@@ -1,6 +1,7 @@
 """The composable decoder: torch counterpart of `repro.models.model`, for
-the block kinds this slice covers ('attn', 'local', 'rec') with dense MLPs
-and standard (or no) rope.
+the block kinds the port covers ('attn', 'local', 'rec', 'rwkv') with
+dense MLPs (or the RWKV channel mix on 'rwkv' blocks) and standard (or
+no) rope.
 
 Layers are grouped into repeated pattern units (e.g. recurrentgemma:
 rec, rec, local). JAX stacks the units and scans over them; here the
@@ -13,11 +14,11 @@ from __future__ import annotations
 import torch
 
 from .. import resolve_device
-from . import attention, layers, rglru
+from . import attention, layers, rglru, rwkv6
 from .config import ModelConfig
 from .nn import Initializer, Params
 
-SUPPORTED_BLOCKS = ("attn", "local", "rec")
+SUPPORTED_BLOCKS = ("attn", "local", "rec", "rwkv")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -45,9 +46,15 @@ def _init_block(ini: Initializer, cfg: ModelConfig, kind: str):
     mixer = ini.scope("mixer")
     if kind in ("attn", "local"):
         attention.init_attention(mixer, cfg)
-    else:
+    elif kind == "rec":
         rglru.init_rglru(mixer, cfg)
-    layers.init_mlp(ini.scope("ffn"), cfg)
+    else:
+        rwkv6.init_rwkv(mixer, cfg)
+    ffn = ini.scope("ffn")
+    if kind == "rwkv":
+        rwkv6.init_rwkv_cm(ffn, cfg)
+    else:
+        layers.init_mlp(ffn, cfg)
 
 
 def init_model(cfg: ModelConfig, *, device="cuda",
@@ -86,8 +93,14 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     if kind in ("attn", "local"):
         kv = (batch, max_len, cfg.n_kv_heads, cfg.hd)
         return {"k": torch.zeros(kv, **z), "v": torch.zeros(kv, **z)}
-    return {"h": torch.zeros((batch, cfg.rnn_w), **z),
-            "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.rnn_w), **z)}
+    if kind == "rec":
+        return {"h": torch.zeros((batch, cfg.rnn_w), **z),
+                "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.rnn_w),
+                                    **z)}
+    hd = cfg.rwkv_head_dim
+    return {"S": torch.zeros((batch, cfg.d_model // hd, hd, hd), **z),
+            "shift": torch.zeros((batch, cfg.d_model), **z),
+            "shift_cm": torch.zeros((batch, cfg.d_model), **z)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
@@ -114,11 +127,21 @@ def _apply_block(bp, cfg: ModelConfig, kind: str, x, cos_sin, cache, kv_len):
         mix, new_cache = attention.attention_block(
             bp["mixer"], cfg, h, cos_sin=cos_sin, window=window, cache=cache,
             kv_len=kv_len)
-    else:
+    elif kind == "rec":
         mix, new_cache = rglru.rglru_block(bp["mixer"], cfg, h, cache=cache)
+    else:
+        sub = ({"shift": cache["shift"], "S": cache["S"]}
+               if cache is not None else None)
+        mix, new_cache = rwkv6.rwkv_time_mix(bp["mixer"], cfg, h, cache=sub)
     x = x + mix
     h = layers.rmsnorm(bp["norm2"], x)
-    return x + layers.mlp(bp["ffn"], cfg, h), new_cache
+    if kind != "rwkv":
+        return x + layers.mlp(bp["ffn"], cfg, h), new_cache
+    cm_cache = {"shift": cache["shift_cm"]} if cache is not None else None
+    f, cmc = rwkv6.rwkv_channel_mix(bp["ffn"], cfg, h, cache=cm_cache)
+    if new_cache is not None:
+        new_cache["shift_cm"] = cmc["shift"]
+    return x + f, new_cache
 
 
 def _positions(batch: int, s: int, kv_len, device):

@@ -8,7 +8,8 @@ one prefill at B=2, S=4096 (`make_prefill_step`) and TICKS decode ticks
 on 8 slots (`make_decode_step`, per-slot lengths from 16 up) -- runs the
 window once without and once under `torch.profiler`, and prints the wall
 time of both runs and `tick_profile.print_breakdown` of the profiled one,
-its idle share taken against the unprofiled wall time. Needs a CUDA
+its idle share taken against the unprofiled wall time. Then it does the
+same for one prefill of full-width rwkv6-3b at B=2, S=4096. Needs a CUDA
 device; exits non-zero when the profiler records no device activity.
 """
 from __future__ import annotations
@@ -46,17 +47,23 @@ def _report(name: str, fn, n: int) -> bool:
     return print_breakdown(name, kernel_events(prof), n, wall)
 
 
-def main() -> int:
-    dev = resolve_device("cuda")
-    cfg = configs.get("recurrentgemma-2b")
+def _prefill_window(name: str, dev, rng):
+    """The model `name` in bf16 and its B=2, S=4096 prefill, warmed up."""
+    cfg = configs.get(name)
     params = model.init_model(
         cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
-    rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 4096))).to(dev)
     prefill = steps.make_prefill_step(cfg)
     prefill(params, tokens)                             # warm-up
     print(f"device={torch.cuda.get_device_name(0)} model={cfg.name} bf16")
-    ok = _report("prefill B=2 S=4096", lambda: prefill(params, tokens), 1)
+    return cfg, params, lambda: prefill(params, tokens)
+
+
+def main() -> int:
+    dev = resolve_device("cuda")
+    rng = np.random.default_rng(0)
+    cfg, params, prefill = _prefill_window("recurrentgemma-2b", dev, rng)
+    ok = _report("prefill B=2 S=4096", prefill, 1)
 
     decode = steps.make_decode_step(cfg)
     slots = 8
@@ -69,6 +76,11 @@ def main() -> int:
         for i in range(TICKS):
             decode(params, cache, feed, kv + i)
     ok = _report(f"decode tick ({slots} slots)", ticks, TICKS) and ok
+
+    del params, cache
+    torch.cuda.empty_cache()
+    _, _, prefill = _prefill_window("rwkv6-3b", dev, rng)
+    ok = _report("rwkv6-3b prefill B=2 S=4096", prefill, 1) and ok
     return 0 if ok else 1
 
 

@@ -11,9 +11,10 @@ prefilled one token per engine tick through the decode step.
 
 Behaviour carried over from the reference as it is: `_assign_slots`
 resets only a slot's `kv_len`. The recurrent state of a 'rec' block
-(`h`, `conv`) is not cleared when a slot is reassigned, and idle slots are
-stepped on token 0 each tick, so a request that lands on a used slot
-starts from another request's state. Attention-only models are unaffected
+(`h`, `conv`) or an 'rwkv' block (`S`, `shift`, `shift_cm`) is not
+cleared when a slot is reassigned, and idle slots are stepped on token 0
+each tick, so a request that lands on a used slot starts from another
+request's state. Attention-only models are unaffected
 (they mask by kv_len). The tests hold the port to the reference's tokens,
 this included.
 """
@@ -120,7 +121,7 @@ class BFCServer:
             slot = self.free.pop(0)            # free-list assignment (§3.3.1)
             req.slot = slot
             self.active[slot] = req
-            self.kv_len[slot] = 0              # as the reference: h/conv stay
+            self.kv_len[slot] = 0              # as the reference: state stays
 
     def tick(self) -> List[Request]:
         """One engine step: feed each active slot its next token (prompt

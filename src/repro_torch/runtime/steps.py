@@ -16,7 +16,8 @@ from ..models.config import ModelConfig
 def make_prefill_step(cfg: ModelConfig):
     def prefill_step(params, tokens):
         """tokens (B,S) -> (last-token logits (B,1,V) float32, cache with S
-        positions). Every attention and RG-LRU layer runs its kernel."""
+        positions). Every attention, RG-LRU and RWKV-6 layer runs its
+        kernel."""
         b, s = tokens.shape
         with torch.inference_mode():
             cache = model.init_cache(cfg, b, s, device=tokens.device)

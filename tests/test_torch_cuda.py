@@ -1,7 +1,7 @@
 """The port on the card: the CUDA kernels against their plain versions,
 one golden family end to end with the kernel launched once per simulated
-tick, and the reduced recurrentgemma prefill through the LM kernels
-against the plain path on the CPU. Needs a CUDA device and nvcc (a CUDA kernel has no CPU
+tick, and the reduced recurrentgemma and rwkv6 prefills through the LM
+kernels against the plain path on the CPU. Needs a CUDA device and nvcc (a CUDA kernel has no CPU
 mode), so every test here carries the `cuda` marker and skips elsewhere;
 run them on a GPU machine with
 
@@ -20,6 +20,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.rglru import ops as lru_ops  # noqa: E402
 from repro_torch.kernels.rglru.ref import rglru_scan_ref  # noqa: E402
+from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.rwkv6 import ref as wkv_ref  # noqa: E402
 from repro_torch.models import model  # noqa: E402
 from repro_torch.runtime import steps  # noqa: E402
 from repro_torch.sim.trace import golden  # noqa: E402
@@ -165,3 +167,80 @@ def test_reduced_recurrentgemma_prefill_on_card(card):
         for leaf, want in want_cache["units"][0][name].items():
             torch.testing.assert_close(got_cache["units"][0][name][leaf].cpu(),
                                        want, atol=1e-4, rtol=1e-4)
+
+
+def _wkv_inputs(card, b, s, h, d, dtype):
+    """r, k, v in `dtype`; log w in the model's clipped range."""
+    gen = torch.Generator(card).manual_seed(b * s + h + d)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=card)
+    r, k, v = (normal(b, s, h, d).mul(0.5).to(dtype) for _ in range(3))
+    logw = -normal(b, s, h, d).exp().clamp(1e-6, 5.0)
+    return r, k, v, logw, normal(h, d) * 0.3, normal(b, h, d, d) * 0.2
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("b,s,h,d,dtype,plain", [
+    (2, 1024, 40, 64, "bfloat16", "chunked"),     # rwkv6-3b's heads
+    (1, 128, 4, 32, "float32", "chunked"),
+    (2, 64, 2, 16, "float32", "chunked"),         # the reduced config's
+    (1, 37, 2, 64, "float32", "sequential"),      # a ragged last run
+])
+def test_wkv_matches_plain_version(card, b, s, h, d, dtype, plain):
+    """Tolerance max|d| / max|ref| <= 1e-5: the kernel runs the recurrence
+    token by token, the plain version in 16-token chunks (3.9e-7 apart in
+    float32 at (1, 2048, 2, 64) with the JAX package's two forms)."""
+    x = _wkv_inputs(card, b, s, h, d, getattr(torch, dtype))
+    before = wkv_ops.launches["wkv"]
+    got = wkv_ops.wkv(*x)
+    want = (wkv_ref.wkv_chunked_ref if plain == "chunked"
+            else wkv_ref.wkv_seq_ref)(*x)
+    torch.cuda.synchronize()
+    assert wkv_ops.launches["wkv"] == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert _rel(g, w) <= 1e-5
+
+
+def test_wkv_rejects_bad_operands(card):
+    r, k, v, logw, u, h0 = _wkv_inputs(card, 1, 16, 2, 64, torch.float32)
+    with pytest.raises(TypeError):
+        wkv_ops.wkv(r, k.bfloat16(), v, logw, u, h0)
+    with pytest.raises(TypeError):
+        wkv_ops.wkv(r, k, v, logw.bfloat16(), u, h0)
+    with pytest.raises(ValueError, match="head_dim"):
+        wkv_ops.wkv(*(t[..., :48] for t in (r, k, v, logw)), u[:, :48],
+                    h0[..., :48, :48].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_ops.wkv(r.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                    logw, u, h0)
+    with pytest.raises(ValueError, match="shape"):
+        wkv_ops.wkv(r, k, v, logw, u, h0[:, :1])
+
+
+def test_reduced_rwkv6_prefill_on_card(card):
+    """The prefill through the WKV kernel on the card, once per layer,
+    agrees with the plain path on the CPU (float32, TF32 off; tolerance
+    1e-4)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.reduced("rwkv6-3b")
+    params = model.init_model(cfg, device="cpu", seed=1)
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 256)))
+    want_logits, want_cache = steps.make_prefill_step(cfg)(params, tok)
+    wkv_ops.reset_launches()
+    got_logits, got_cache = steps.make_prefill_step(cfg)(
+        params.to(card), tok.to(card))
+    torch.cuda.synchronize()
+    assert wkv_ops.launches["wkv"] == cfg.n_layers == 2
+    torch.testing.assert_close(got_logits.cpu(), want_logits, atol=1e-4,
+                               rtol=1e-4)
+    for unit, want_unit in zip(got_cache["units"], want_cache["units"]):
+        for leaf, want in want_unit["b0"].items():
+            torch.testing.assert_close(unit["b0"][leaf].cpu(), want,
+                                       atol=1e-4, rtol=1e-4)

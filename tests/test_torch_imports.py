@@ -40,6 +40,8 @@ def test_modules_import_with_jax_and_repro_blocked():
         "import repro_torch.launch.serve\n"
         "import repro_torch.kernels.flash_attention.ops\n"
         "import repro_torch.kernels.rglru.ops\n"
+        "import repro_torch.kernels.rwkv6.ops, repro_torch.models.rwkv6\n"
+        "import repro_torch.runtime.lm_profile\n"
         "from repro_torch.launch import serve\n"
         "assert serve.build_parser().parse_args([]).device == 'cuda'\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"

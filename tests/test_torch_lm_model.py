@@ -2,7 +2,8 @@
 reduced configs, with JAX's parameters carried across
 (`params_from_jax`): prefill logits and caches, per-row decode ticks, and
 the cache-free backbone. Tolerance: rtol = atol = 1e-4 (float32 on both
-sides; another summation order, and the RG-LRU scan's chunked form)."""
+sides; another summation order, and the RG-LRU scan's and the WKV
+recurrence's chunked forms)."""
 import numpy as np
 import pytest
 
@@ -22,7 +23,7 @@ from repro_torch.testing import (cache_from_jax, cache_to_numpy,  # noqa: E402
 pytestmark = pytest.mark.tier1
 
 TOL = 1e-4
-ARCHS = ["recurrentgemma-2b", "gemma3-1b", "phi3-mini-3.8b"]
+ARCHS = ["recurrentgemma-2b", "gemma3-1b", "phi3-mini-3.8b", "rwkv6-3b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -49,7 +50,7 @@ def _assert_caches_close(port_cache, jax_cache):
              enumerate(zip(got["units"], want["units"]))]
     trees += [(k, got[k], want[k]) for k in want if k != "units"]
     for where, g, w in trees:
-        if "k" in w or "h" in w:              # a single block's cache
+        if {"k", "h", "S"} & set(w):          # a single block's cache
             g, w = {"": g}, {"": w}
         assert sorted(g) == sorted(w)
         for blk in w:
@@ -101,6 +102,22 @@ def test_recurrentgemma_prefill_over_eight_scan_chunks():
     _assert_caches_close(tc, jc)
 
 
+def test_rwkv_prefill_over_sixty_four_wkv_chunks():
+    """S=1024: sixty-four 16-token chunks of the WKV recurrence."""
+    name = "rwkv6-3b"
+    jcfg = jconfigs.reduced(name)
+    jparams, _ = jmodel.init_model(jax.random.key(3), jcfg)
+    tparams = params_from_jax(jax.device_get(jparams),
+                              configs.reduced(name))
+    tok = _tokens(2, 1, 1024, jcfg.vocab)
+    jl, jc = jax.jit(jsteps.make_prefill_step(jcfg))(jparams,
+                                                     jnp.asarray(tok))
+    tl, tc = steps.make_prefill_step(configs.reduced(name))(
+        tparams, torch.from_numpy(tok))
+    _close(tl, jl, "logits")
+    _assert_caches_close(tc, jc)
+
+
 def test_decode_ticks_with_per_row_lengths_match_jax(pair):
     """8 decode ticks on 3 rows at different kv_len, from a cache holding
     random state (JAX's own numbers carried across)."""
@@ -135,7 +152,7 @@ def test_cache_free_backbone_matches_jax(pair):
            jmodel.logits_for(jparams, jcfg, jh), "logits")
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "rwkv6-3b",
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "grok-1-314b",
                                   "qwen2-vl-2b", "musicgen-medium"])
 def test_unported_blocks_raise(arch):
     with pytest.raises(NotImplementedError, match="does not implement"):
@@ -145,6 +162,15 @@ def test_unported_blocks_raise(arch):
 def test_prefill_refuses_shapes_jax_refuses():
     """The chunked paths need s % 512 (windowed) / s % 128 (scan)."""
     cfg = configs.reduced("recurrentgemma-2b")
+    params = model.init_model(cfg, device="cpu")
+    with pytest.raises(AssertionError):
+        steps.make_prefill_step(cfg)(params, torch.zeros((1, 600),
+                                                         dtype=torch.long))
+
+
+def test_rwkv_prefill_refuses_shapes_jax_refuses():
+    """The chunked WKV form needs s % 16; 600 is not a multiple of 16."""
+    cfg = configs.reduced("rwkv6-3b")
     params = model.init_model(cfg, device="cpu")
     with pytest.raises(AssertionError):
         steps.make_prefill_step(cfg)(params, torch.zeros((1, 600),
