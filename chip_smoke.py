@@ -6,7 +6,13 @@
 Phases, in order (any failure exits non-zero; no phase catches its own):
 
 1. setup     -- device, torch version, `nvidia-smi` name and power limit;
-                build the CUDA kernels from `src/repro_torch/.../csrc`.
+                build the CUDA kernels from `src/repro_torch/.../csrc`,
+                print ptxas's registers and spills for every kernel
+                instance, and fail if one spills or has its wgmma
+                serialised (C7520); count HGMMA and local-memory
+                instructions in each bf16 attention kernel's SASS
+                (`cuobjdump`), and fail unless every one has HGMMA and
+                none touches local memory.
 2. kernels   -- `bfc_fused` (DRR and SRF) and `bfc_decide` against their
                 plain torch versions on the card, exact equality of every
                 output; CUDA-event timings of kernel, plain version and the
@@ -19,11 +25,15 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
                 ticks: wall time, ticks/s, FCT slowdown, drops, and the
                 `bfc_fused` launch count, which must equal the simulated
                 ticks.
-5. lm-kernels -- `flash_attention` (bf16 at the prefill shape, f32 at four
-                small shapes: causal and not, hd 256 with a sliding
-                window, hd 96) and `rglru_scan` (at the
-                prefill shape and a small one) against their plain torch
-                versions within the stated tolerances; CUDA-event timings
+5. lm-kernels -- `flash_attention`, bf16 (the tensor-core kernel) at the
+                prefill shape and at five small shapes (GQA causal;
+                non-causal cross with ragged S and T; hd 256 with a
+                sliding window over partial tiles; hd 96; hd 16 with S not
+                a multiple of the 128-row q tile), and f32 (the CUDA-core
+                kernel) at four small shapes (causal and not, hd 256 with
+                a sliding window, hd 96); `rglru_scan` at the prefill
+                shape and a small one; each against its plain torch
+                version within the stated tolerances; CUDA-event timings
                 of kernel, plain version and SDPA, and the bounds.
 6. lm-prefill -- full-width recurrentgemma-2b in bf16 (random weights from
                 a seeded generator on the card): `make_prefill_step` at
@@ -91,11 +101,19 @@ LM_ARCH = "recurrentgemma-2b"
 PREFILL_B, PREFILL_S = 2, 4096
 CONSISTENCY_S = 2560              # longer than the 2048-token window
 SERVE = dict(n_slots=8, max_len=128, requests=16, max_new=16)
-# (B, H, K, S, T, hd, causal, window): the prefill's local attention, then
+# (B, H, K, S, T, hd, causal, window): the prefill's local attention; small
+# bf16 cases: causal with GQA; non-causal cross with S and T not multiples
+# of the q and kv tiles; the path's hd = 256 with a sliding window over
+# partial tiles; phi3-mini's hd = 96; hd = 16 with S not a multiple of 128
+FLASH_PATH = (2, 10, 1, 4096, 4096, 256, True, 2048)
+FLASH_SMALL_BF16 = [(2, 4, 2, 128, 128, 64, True, 0),
+                    (1, 8, 4, 130, 200, 64, False, 0),
+                    (1, 2, 1, 320, 320, 256, True, 100),
+                    (1, 4, 4, 160, 160, 96, True, 0),
+                    (2, 4, 4, 200, 200, 16, True, 0)]
 # small float32 cases: causal with GQA; non-causal cross, T != S; the
 # path's hd = 256 and sliding window over 5 q tiles and 10 kv tiles, some
 # of them skipped; phi3-mini's hd = 96
-FLASH_PATH = (2, 10, 1, 4096, 4096, 256, True, 2048)
 FLASH_SMALL = [(2, 4, 2, 128, 128, 64, True, 0),
                (1, 8, 4, 128, 256, 64, False, 0),
                (1, 2, 1, 320, 320, 256, True, 100),
@@ -105,11 +123,13 @@ SCAN_SMALL = (3, 72, 96)          # S and W not multiples of the unroll
                                   # (16) and block (64): the ragged edges
 # Tolerances (atol, rtol), |got - want| <= atol + rtol * |want|: attention
 # in float32 2e-5 as the JAX package's kernel test (tests/test_kernels.py:51);
-# in bf16 both sides accumulate in float32 and round the output once, so
-# they differ by at most one bf16 ulp (2^-7 of |want| at most) plus the
-# float32 differences: 1e-2 relative, 4e-3 absolute for outputs near 0. The
-# scan 1e-4 (the kernel sums sequentially, the plain version in the chunked
-# cumsum form)
+# in bf16 the kernel rounds P to bf16 before the P V product on the tensor
+# cores (2^-9 relative per term, mostly averaging out over a row's keys),
+# while the plain version keeps P in float32; both accumulate in float32
+# and round the output once, so they differ by about one bf16 ulp (2^-7 of
+# |want| at most) plus P's rounding: 1e-2 relative, 4e-3 absolute for
+# outputs near 0. The scan 1e-4 (the kernel sums sequentially, the plain
+# version in the chunked cumsum form)
 FLASH_TOL = {"bfloat16": (4e-3, 1e-2), "float32": (2e-5, 2e-5)}
 SCAN_TOL = (1e-4, 1e-4)
 LM_REL_TOL = 1e-3                 # lm-consistency: max|d| / max|ref|
@@ -411,7 +431,9 @@ def phase_paper(torch):
 
 
 def build_kernels():
-    """One nvcc per kernel source, all started together."""
+    """One nvcc per kernel source, all started together. Fails if ptxas
+    reports a spill or serialised wgmma (C7520) in any kernel, or if a
+    bf16 attention kernel's SASS has no HGMMA or touches local memory."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.bfc_step import bfc_step
@@ -425,9 +447,23 @@ def build_kernels():
     say(f"[setup] built {', '.join(p.name for p in paths)} in "
         f"{time.perf_counter() - t0:.2f}s")
     for m in mods:
-        for line in nvcc.build_info[str(m.SOURCE)]["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"[setup] ptxas {m.SOURCE.name}: {line.strip()}")
+        lines, spilled, serialized = nvcc.ptxas_report(
+            nvcc.build_info[str(m.SOURCE)]["log"])
+        for line in lines:
+            say(f"[setup] ptxas {m.SOURCE.name} {line}")
+        if spilled or serialized:
+            raise AssertionError(
+                f"a kernel of {m.SOURCE.name} "
+                + ("spills registers to local memory" if spilled else
+                   "has its wgmma serialised by ptxas (C7520)"))
+    sass = {fn: c for fn, c in nvcc.sass_counts(paths[1]).items()
+            if fn.startswith("flash_fwd_bf16_kernel")}
+    for fn, (hgmma, local) in sass.items():
+        say(f"[setup] sass {fn}: {hgmma} HGMMA, {local} LDL/STL")
+    if len(sass) != len(flash_attention.HEAD_DIMS) or any(
+            hgmma == 0 or local for hgmma, local in sass.values()):
+        raise AssertionError("every bf16 attention kernel must use HGMMA "
+                             "and no local memory")
 
 
 def within(torch, got, want, tol) -> float:
@@ -507,6 +543,7 @@ def phase_lm_kernels(torch):
     gen = torch.Generator("cuda").manual_seed(SEED)
     worst = {"flash_attention": 0.0, "rglru_scan": 0.0}
     for shape, dtype in ([(FLASH_PATH, torch.bfloat16)]
+                         + [(c, torch.bfloat16) for c in FLASH_SMALL_BF16]
                          + [(c, torch.float32) for c in FLASH_SMALL]):
         b, h, kh, s, t, hd, causal, window = shape
         q, k, v = flash_inputs(torch, gen, b, h, kh, s, t, hd, dtype)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -57,3 +58,63 @@ def build(source: Path) -> Path:
     build_info[str(source)] = {"path": out,
                                "log": proc.stdout + proc.stderr}
     return out
+
+
+def kernel_name(symbol: str) -> str:
+    """`flash_fwd_bf16_kernel<256>` from a mangled kernel name: the last
+    component of its nested name, with its template arguments when they
+    are integer or bool literals or `float`; a symbol of another form is
+    returned unchanged."""
+    if not symbol.startswith("_ZN"):
+        return symbol
+    i, name = 3, ""
+    while (m := re.match(r"\d+", symbol[i:])):
+        i += len(m.group())
+        name, i = symbol[i:i + int(m.group())], i + int(m.group())
+    if symbol[i:i + 1] == "E":
+        return name
+    args = re.match(r"I((?:L[a-z]\d+E|f)+)E", symbol[i:])
+    if not args:
+        return symbol
+    return name + "<" + ", ".join(
+        v or "float" for v in re.findall(r"L[a-z](\d+)E|f",
+                                         args.group(1))) + ">"
+
+
+def ptxas_report(log: str) -> tuple[list[str], bool, bool]:
+    """From what nvcc printed: ptxas's register, spill, warning and
+    performance lines, each as "<kernel>: <line>"; whether any kernel
+    spills; whether ptxas serialised any kernel's wgmma (C7520, a wgmma
+    issue or wait in a divergent path)."""
+    lines, spilled, fn = [], False, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = kernel_name(m.group(1))
+        elif re.search(r"spill|registers|arning|Performance|ignored|C75\d\d",
+                       line):
+            lines.append(f"{fn}: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            spilled = spilled or bool(m and (int(m.group(1))
+                                             or int(m.group(2))))
+    serialized = any("C7520" in x or "serialized" in x for x in lines)
+    return lines, spilled, serialized
+
+
+def sass_counts(lib: Path) -> dict:
+    """{kernel: (HGMMA instructions, local-memory LDL/STL instructions)}
+    in the SASS of a built library (`cuobjdump -sass`)."""
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = kernel_name(m.group(1))
+            counts[fn] = [0, 0]
+        elif fn:
+            counts[fn][0] += "HGMMA" in line
+            counts[fn][1] += bool(re.search(r"\b(LDL|STL)\b", line))
+    return {fn: tuple(c) for fn, c in counts.items()}

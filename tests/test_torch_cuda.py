@@ -92,6 +92,11 @@ def test_golden_family_on_card(card):
 
 @pytest.mark.parametrize("b,h,kh,s,t,hd,causal,window,dtype,tol", [
     (2, 10, 1, 1024, 1024, 256, True, 256, "bfloat16", (4e-3, 1e-2)),
+    (2, 4, 2, 128, 128, 64, True, 0, "bfloat16", (4e-3, 1e-2)),
+    (1, 8, 4, 130, 200, 64, False, 0, "bfloat16", (4e-3, 1e-2)),
+    (1, 2, 1, 320, 320, 256, True, 100, "bfloat16", (4e-3, 1e-2)),
+    (1, 4, 4, 160, 160, 96, True, 0, "bfloat16", (4e-3, 1e-2)),  # phi3-mini
+    (2, 4, 4, 200, 200, 16, True, 0, "bfloat16", (4e-3, 1e-2)),
     (1, 8, 4, 130, 200, 64, False, 0, "float32", (2e-5, 2e-5)),
     (2, 4, 4, 96, 96, 16, True, 0, "float32", (2e-5, 2e-5)),
     (1, 2, 1, 320, 320, 256, True, 100, "float32", (2e-5, 2e-5)),
@@ -100,7 +105,8 @@ def test_golden_family_on_card(card):
 def test_flash_attention_matches_plain_version(card, b, h, kh, s, t, hd,
                                                causal, window, dtype, tol):
     """Tolerance (atol, rtol): f32 2e-5 as tests/test_kernels.py:51; bf16
-    one output ulp (rtol 1e-2) plus 4e-3 near 0, as `chip_smoke.py`."""
+    (the tensor-core kernel, P rounded to bf16 before the P V product) one
+    output ulp (rtol 1e-2) plus 4e-3 near 0, as `chip_smoke.py`."""
     gen = torch.Generator(card).manual_seed(s + t)
     dt = getattr(torch, dtype)
     q = torch.randn((b, s, h, hd), generator=gen, device=card).to(
@@ -132,6 +138,30 @@ def test_rglru_scan_matches_plain_version(card, b, s, w):
     assert lru_ops.launches["rglru_scan"] == before + 1
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_attention_refuses_bf16_operands_tma_cannot_address(card):
+    """The bf16 kernel reads through TMA: a base one element off 16 bytes,
+    or a position stride that is not a multiple of 16 bytes, raises
+    ValueError (no fallback to another kernel)."""
+    bf16 = torch.bfloat16
+    k = torch.randn((1, 2, 128, 64), device=card).to(bf16)
+    flat = torch.randn(1 + k.numel(), device=card).to(bf16)
+    shifted = flat[1:].view(k.shape)                  # base + 2 bytes
+    wide = torch.randn((1, 2, 128, 68), device=card).to(bf16)[..., :64]
+    before = fa_ops.launches["flash_attention"]
+    for q in (shifted, wide):
+        with pytest.raises(ValueError, match="TMA"):
+            fa_ops.attend(q, k, k)
+    with pytest.raises(ValueError, match="TMA"):
+        fa_ops.attend(k, k, shifted)
+    assert fa_ops.launches["flash_attention"] == before
+    # the float32 kernel reads element by element: the same offset is fine
+    q32 = torch.randn(1 + k.numel(), device=card)[1:].view(k.shape)
+    k32 = k.float()
+    torch.testing.assert_close(fa_ops.attend(q32, k32, k32),
+                               attention_ref(q32, k32, k32), atol=2e-5,
+                               rtol=2e-5)
 
 
 def test_lm_kernels_reject_bad_operands(card):

@@ -170,3 +170,63 @@ def test_flash_kernel_takes_every_buildable_attention_head_dim():
                 assert cfg.hd in flash_attention.HEAD_DIMS, (cfg.name, cfg.hd)
                 seen.add(cfg.hd)
     assert {96, 256} <= seen
+
+
+def test_flash_operands_of_every_config_are_tma_addressable(monkeypatch):
+    """The bf16 kernel reads q, k and v through TMA and refuses operands it
+    cannot address. The layouts `models/attention.py` hands over -- q, k, v
+    as (B,H,S,hd) views of the projections' (B,S,H,hd), and k, v as views
+    of the decode cache on the prefill-over-cache path -- pass the
+    wrapper's predicate for every config the port builds, full width and
+    reduced. The blocks run on the meta device (shapes and strides, no
+    data); the caching allocator's bases are 16-byte aligned, so a view's
+    alignment is its storage offset's."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import attention, layers, model
+    seen = []
+
+    def record(q, k, v, *, causal, window):
+        seen.append([(tuple(x.shape), x.stride(), x.element_size(),
+                      x.storage_offset() * x.element_size() % 16)
+                     for x in (q, k, v)])
+        b, h, s, hd = q.shape
+        return torch.empty((b, s, h, hd), dtype=q.dtype,
+                           device=q.device).transpose(1, 2)
+
+    monkeypatch.setattr(fa_ops, "attend", record)
+    meta, bf16 = torch.device("meta"), torch.bfloat16
+    b, s = 2, 1024
+    names = set()
+    for arch in configs.ARCHS:
+        for cfg in (configs.get(arch), configs.reduced(arch)):
+            try:
+                model.check_supported(cfg)
+            except NotImplementedError:
+                continue
+            if not {"attn", "local"} & set(cfg.pattern):
+                continue
+            d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+            p = {name: torch.empty(shape, dtype=bf16, device=meta)
+                 for name, shape in (("wq", (d, h, hd)), ("wk", (d, kh, hd)),
+                                     ("wv", (d, kh, hd)), ("wo", (h, hd, d)))}
+            x = torch.empty((b, s, d), dtype=bf16, device=meta)
+            cos_sin = (layers.rope_angles(torch.arange(s, device=meta)[None],
+                                          hd, cfg.rope_theta)
+                       if cfg.rope == "standard" else None)
+            cache = {n: torch.empty((b, 2 * s, kh, hd), dtype=bf16,
+                                    device=meta) for n in ("k", "v")}
+            before = len(seen)
+            for window in {0, cfg.window}:
+                attention.attention_block(p, cfg, x, cos_sin=cos_sin,
+                                          window=window)
+                attention.attention_block(p, cfg, x, cos_sin=cos_sin,
+                                          window=window, cache=cache,
+                                          kv_len=s)
+            assert len(seen) > before, cfg.name
+            names.add(cfg.name)
+    assert len(names) >= 4
+    for operands in seen:
+        for shape, strides, itemsize, mod16 in operands:
+            assert flash_attention.tma_addressable(shape, strides, itemsize,
+                                                   mod16), (shape, strides)
