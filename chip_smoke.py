@@ -13,19 +13,33 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
                 instructions in each bf16 attention kernel's SASS
                 (`cuobjdump`), and fail unless every one has HGMMA and
                 none touches local memory.
-2. kernels   -- `bfc_fused` (DRR and SRF) and `bfc_decide` against their
-                plain torch versions on the card, exact equality of every
-                output; CUDA-event timings of kernel, plain version and the
-                memory/operation bound at the main path's shape.
-3. golden    -- all 16 PRESETS families on the pinned golden case, emits,
-                trace channels and active ticks bit-for-bit against
-                `tests/fixtures/traces/<family>.npz`.
-4. paper     -- `bfc` on the paper's 128-server / 8 ToR / 8 spine Clos,
+2. kernels   -- `bfc_fused` as the main path runs it: the fused switch
+                step (the kernel's derive mode: occupancy, head-of-queue
+                Bloom lookup, PFC, arrivals at the sources and the pick, one
+                launch per tick) against its plain torch version
+                (`derive_ref`) on seeded states at FUSED_SHAPES (DRR and
+                SRF; the flags of bfc, bfc_pfc and pfc; a tight and an
+                infinite buffer) and on the paper case's state at tick 2048
+                under bfc, bfc_srf and bfc_pfc; the standalone `bfc_fused`
+                (DRR and SRF) and `bfc_decide` against theirs; exact
+                equality of every output. CUDA-event timings of kernel,
+                plain version and the memory/operation bound at the main
+                path's shapes.
+3. golden    -- all 16 PRESETS families on the pinned golden case through
+                the graphed runner (a CUDA graph of `engine.GRAPH_TICKS`
+                ticks, replayed), emits, trace channels and active ticks
+                bit-for-bit against `tests/fixtures/traces/<family>.npz`.
+4. lockstep  -- the paper case's first 1024 ticks through the graphed
+                runner against `make_step`'s eager step, tick by tick:
+                every `SimState` leaf and emit row equal.
+5. paper     -- `bfc` on the paper's 128-server / 8 ToR / 8 spine Clos,
                 fb_hadoop at load 0.6, seed 0, 4000 flows, horizon + 20000
-                ticks: wall time, ticks/s, FCT slowdown, drops, and the
-                `bfc_fused` launch count, which must equal the simulated
-                ticks.
-5. lm-kernels -- `flash_attention`, bf16 (the tensor-core kernel) at the
+                ticks, through the graphed runner: wall time, ticks/s, FCT
+                slowdown, drops, pauses, and the `bfc_fused` launch count,
+                which must equal the simulated ticks; the results must be
+                the port's known ones (29184 active ticks, 4000/4000
+                completed, p99 3.1873, avg 1.2394, 0 drops, 11064 pauses).
+6. lm-kernels -- `flash_attention`, bf16 (the tensor-core kernel) at the
                 prefill shape and at five small shapes (GQA causal;
                 non-causal cross with ragged S and T; hd 256 with a
                 sliding window over partial tiles; hd 96; hd 16 with S not
@@ -35,32 +49,32 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
                 shape and a small one; each against its plain torch
                 version within the stated tolerances; CUDA-event timings
                 of kernel, plain version and SDPA, and the bounds.
-6. lm-prefill -- full-width recurrentgemma-2b in bf16 (random weights from
+7. lm-prefill -- full-width recurrentgemma-2b in bf16 (random weights from
                 a seeded generator on the card): `make_prefill_step` at
                 B=2, S=4096; wall time, tokens/s, finite logits, and exactly
                 8 `flash_attention` and 18 `rglru_scan` launches.
-7. lm-consistency -- the same model in f32 (TF32 off): the last-token
+8. lm-consistency -- the same model in f32 (TF32 off): the last-token
                 logits and the caches of a 2560-token prefill (kernels)
                 against the decode step fed the prompt token by token
                 (plain torch), relative error <= 1e-3.
-8. lm-serve  -- `BFCServer` on the bf16 model, 8 slots, 16 requests from 4
+9. lm-serve  -- `BFCServer` on the bf16 model, 8 slots, 16 requests from 4
                 clients, 16 new tokens each: all complete; tokens/s of
                 this toy load (a smoke result, not a serving benchmark).
-9. rwkv-kernels -- `wkv` against its plain version (the chunked form): bf16
+10. rwkv-kernels -- `wkv` against its plain version (the chunked form): bf16
                 r, k, v at the prefill shape (2, 4096, 40, 64) and f32 at
                 three small shapes, out and hT within 1e-5 of max|ref|;
                 CUDA-event timings of kernel and plain version, the bound.
-10. rwkv-prefill -- full-width rwkv6-3b in bf16 (random weights from a
+11. rwkv-prefill -- full-width rwkv6-3b in bf16 (random weights from a
                 seeded generator on the card), parameters within the JAX
                 nameplate band: `make_prefill_step` at B=2, S=4096; wall
                 time, tokens/s, finite logits, and exactly 32 `wkv` and no
                 other LM kernel launches.
-11. rwkv-consistency -- the same model in f32 (TF32 off): a 1024-token
+12. rwkv-consistency -- the same model in f32 (TF32 off): a 1024-token
                 prefill (kernel) against the decode step fed the prompt
                 token by token (plain torch), relative error <= 1e-3.
-12. rwkv-serve -- `BFCServer` on the bf16 rwkv6-3b, the lm-serve load: all
+13. rwkv-serve -- `BFCServer` on the bf16 rwkv6-3b, the lm-serve load: all
                 complete (a smoke result).
-13. report   -- one `kernels` JSON line, then the device JSON line last.
+14. report   -- one `kernels` JSON line, then the device JSON line last.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero
 without a result when CUDA is unavailable or the port is not beside it.
@@ -91,9 +105,18 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
 # integer operations per (port, queue) element of one call, counted from
 # csrc/bfc_step.cu: activity test (3), count (1), DRR key (4), packed key
-# (2), running min (1), pause compare (1), occ_after update (2)
+# (2), running min (1), pause compare (1), occ_after update (2); the derive
+# mode adds the occupancy (1) and the segmented reduction's 5 steps of 3
 OPS_PER_ELEMENT = 14
+OPS_PER_ELEMENT_DERIVE = 30
 PAPER_DRAIN = 20_000
+PAPER_STATE_TICK = 2048           # kernels phase: paper-case states here
+PAPER_STATE_PRESETS = ("bfc", "bfc_srf", "bfc_pfc")
+LOCKSTEP_TICKS = 1024
+# what the paper run must give (the port's results since it was first run)
+PAPER_EXPECT = {"active_ticks": 29184, "completed": 4000, "total": 4000,
+                "p99": "3.1873", "avg": "1.2394", "drops": 0,
+                "pauses": 11064}
 GOLDEN_WORKERS = 4
 
 # LM slice: recurrentgemma-2b prefill + BFCServer decode
@@ -247,10 +270,123 @@ def bound(p, q, *, fused, srf=False):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def derive_bound(args, kw, want):
+    """(bound_ms, bound_by) of one fused switch step (derive mode) on these
+    operands: each input the kernel needs read once, each output written
+    once, over HBM bandwidth; integer operations over the INT32 peak. The
+    head-of-queue lookup (one qbuf entry, S fpos entries and S Bloom bytes)
+    is counted for the non-empty queues only, the SRF key for the active
+    ones only: what this state's data needs (csrc/bfc_step.cu)."""
+    qhead, fpos = args[0], args[9]
+    p, q = qhead.shape
+    f, s = fpos.shape
+    n = p * q
+    nonempty = int((want.occ > 0).sum())
+    active = int(((want.occ > 0) & ~want.qpaused).sum())
+    n_in = (8 * n + 12 * f + 8 + 5 * p
+            + (4 * active if kw["scheduler"] == "srf" else 4 * p)
+            + (nonempty * (4 + 5 * s) if kw["backpressure"] else 0)
+            + (9 * p if kw["pfc"] else 0))
+    n_out = 9 * n + 14 * p + 4 * kw["n_switches"] + 4 * f
+    t_bytes = (n_in + n_out) / HBM_BYTES_PER_S * 1e3
+    t_ops = n * OPS_PER_ELEMENT_DERIVE / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def paper_state(torch, name, n_ticks):
+    """(args, kwargs) of the fused switch step on the paper case's state
+    under preset `name` after `n_ticks` ticks on the card."""
+    from dataclasses import replace
+    from repro_torch.sim import engine, phases, topology
+    from repro_torch.sim.config import PRESETS
+    from repro_torch.sim.tick_profile import paper_case
+    _, topo, flows, cfg = paper_case(SEED)
+    cfg = replace(cfg, proto=PRESETS[name])
+    dims = topology.TopoDims.of(topo)
+    fops = engine.pack_flows(flows, cfg, "cuda")
+    tops = topology.pack_topo(topo, device="cuda")
+    st, _, _ = engine.simulate(dims, cfg, fops, tops, n_ticks,
+                               early_exit=False)
+    env = phases.make_env(dims, cfg, flows.n_flows, "cuda")
+    return phases.derive_operands(env, st, fops, tops)
+
+
+def check_derive(torch, what, args, kw) -> int:
+    from repro_torch.kernels.bfc_step import bfc_step, ref
+    got = bfc_step.derive(*args, **kw)
+    want = ref.derive_ref(*args, **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, want)
+    if err:
+        raise AssertionError(f"the fused switch step {what} differs from its "
+                             "plain version: " + ", ".join(
+                                 name for name, g, w in zip(
+                                     ref.DeriveOut._fields, got, want)
+                                 if not torch.equal(g, w)))
+    return want
+
+
+def phase_derive(torch):
+    """The main path's kernel (the fused switch step) against its plain
+    version, exact, on seeded and paper-case states; its timings at the
+    paper case's state at tick PAPER_STATE_TICK under `bfc`."""
+    from repro_torch import testing
+    from repro_torch.kernels.bfc_step import bfc_step, ref
+    flags = {"bfc": (True, False), "bfc_pfc": (True, True),
+             "pfc": (False, True)}        # backpressure, pfc
+    n = 0
+    for p, q in FUSED_SHAPES:
+        for sched in ("drr", "srf"):
+            for fam, (bp, pfc) in flags.items():
+                for limit in (None, 1 << 29):
+                    args = testing.random_derive_inputs(
+                        SEED + n, p, q, "cuda", buffer_limit=limit)
+                    kw = dict(n_switches=16, backpressure=bp, pfc=pfc,
+                              scheduler=sched, pfc_frac=0.11,
+                              pause_window=PAUSE_WINDOW)
+                    check_derive(torch, f"{fam} {sched} ({p},{q})", args, kw)
+                    n += 1
+    say(f"[kernels] bfc_fused (fused switch step) {n} seeded states at "
+        f"{FUSED_SHAPES}: max_abs_err=0")
+    states = {}
+    for name in PAPER_STATE_PRESETS:
+        t0 = time.perf_counter()
+        args, kw = paper_state(torch, name, PAPER_STATE_TICK)
+        want = check_derive(torch, f"paper {name}", args, kw)
+        states[name] = (args, kw, want)
+        say(f"[kernels] bfc_fused (fused switch step) paper case {name} "
+            f"tick {PAPER_STATE_TICK}: max_abs_err=0; "
+            f"{int((want.occ > 0).sum())} non-empty queues, "
+            f"{int(want.kcan_tx.sum())} ports transmit, "
+            f"{int(want.qpaused.sum())} head-paused, "
+            f"{int(want.pfc_paused.sum())} PFC-paused "
+            f"({time.perf_counter() - t0:.2f}s)")
+
+    args, kw, want = states["bfc"]
+    kern = lambda: bfc_step.derive(*args, **kw)          # noqa: E731
+    plain = lambda: ref.derive_ref(*args, **kw)          # noqa: E731
+    host = {"plain": time_ms(torch, plain), "kernel": time_ms(torch, kern)}
+    dev = {"plain": [device_ms(torch, plain)]}           # in turns
+    dev["kernel"] = [device_ms(torch, kern), device_ms(torch, kern)]
+    dev["plain"].append(device_ms(torch, plain))
+    b_ms, b_by = derive_bound(args, kw, want)
+    say(f"[kernels] time bfc_fused (fused switch step) paper bfc state, "
+        f"P={args[0].shape[0]} Q={args[0].shape[1]} per call: device (CUDA "
+        f"graph of {GRAPH_CALLS} calls, CUDA events) kernel "
+        + "/".join(f"{v * 1e3:.3f}" for v in dev["kernel"])
+        + " us, plain " + "/".join(f"{v * 1e3:.3f}" for v in dev["plain"])
+        + f" us; issued eagerly from Python ({TIMED_LAUNCHES} calls) kernel "
+        f"{host['kernel'] * 1e3:.3f} us, plain {host['plain'] * 1e3:.3f} us;"
+        f" bound {b_ms * 1e3:.4f} us ({b_by})")
+    return {"ms": min(dev["kernel"]), "plain_ms": min(dev["plain"]),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 def phase_kernels(torch):
     from repro_torch.kernels.bfc_step import bfc_step, ref
     rng = np.random.default_rng(SEED)
     worst = {"bfc_fused": 0, "bfc_decide": 0}
+    main_timing = phase_derive(torch)
     for sched in ("drr", "srf"):
         for p, q in FUSED_SHAPES:
             occ, qp, ptr, blk, key = kernel_inputs(torch, rng, p, q,
@@ -316,7 +452,7 @@ def phase_kernels(torch):
         timing[name] = {"ms": min(dev["kernel"]),
                         "plain_ms": min(dev["plain"]),
                         "bound_ms": b_ms, "bound_by": b_by}
-        say(f"[kernels] time {name} P={p} Q={q} per call: device "
+        say(f"[kernels] time {name} (standalone) P={p} Q={q} per call: device "
             f"(CUDA graph of {GRAPH_CALLS} calls, CUDA events) kernel "
             + "/".join(f"{v * 1e3:.3f}" for v in dev["kernel"])
             + " us, plain " + "/".join(f"{v * 1e3:.3f}" for v in dev["plain"])
@@ -327,9 +463,11 @@ def phase_kernels(torch):
     srf = device_ms(torch, lambda: bfc_step.bfc_fused(
         occ, qp, ptr, blk, pause_window=PAUSE_WINDOW, scheduler="srf",
         srf_key=key))
-    say(f"[kernels] time bfc_fused srf P={p} Q={q} per call: device "
-        f"{srf * 1e3:.3f} us, bound "
+    say(f"[kernels] time bfc_fused (standalone) srf P={p} Q={q} per call: "
+        f"device {srf * 1e3:.3f} us, bound "
         f"{bound(p, q, fused=True, srf=True)[0] * 1e3:.4f} us")
+    # the kernels line's bfc_fused row is the main path's kernel
+    timing["bfc_fused"] = main_timing
     return worst, timing
 
 
@@ -377,15 +515,51 @@ def phase_golden(torch):
         raise AssertionError("golden traces differ:\n" + "\n".join(problems))
 
 
+def paper_operands(torch):
+    from repro_torch.sim import engine, topology
+    from repro_torch.sim.tick_profile import paper_case
+    clos, topo, flows, cfg = paper_case(SEED)
+    return (clos, topo, flows, cfg, topology.TopoDims.of(topo),
+            engine.pack_flows(flows, cfg, "cuda"),
+            topology.pack_topo(topo, device="cuda"))
+
+
+def phase_lockstep(torch):
+    """The graphed runner against `make_step`'s eager step on the paper
+    case's first LOCKSTEP_TICKS ticks: every leaf and emit row equal."""
+    from repro_torch import testing
+    from repro_torch.sim import engine
+    _, _, _, cfg, dims, fops, tops = paper_operands(torch)
+    t0 = time.perf_counter()
+    st, emits, _ = engine.simulate(dims, cfg, fops, tops, LOCKSTEP_TICKS,
+                                   early_exit=False)
+    torch.cuda.synchronize()
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        _, init_state, step = engine.make_step(dims, cfg,
+                                               fops.arrival.shape[0], "cuda")
+        eager, rows = init_state(), []
+        for _ in range(LOCKSTEP_TICKS):
+            eager, row = step(eager, fops, tops)
+            rows.append(row)
+        rows = torch.stack(rows)
+    torch.cuda.synchronize()
+    t_eager = time.perf_counter() - t0
+    testing.assert_state_equal(st, eager, "paper case, graphed vs eager")
+    if not torch.equal(emits, rows):
+        raise AssertionError("paper case: graphed and eager emit rows differ")
+    say(f"[lockstep] paper case, {LOCKSTEP_TICKS} ticks: graphed runner "
+        f"{t_graph:.2f}s (capture included), eager steps {t_eager:.2f}s; "
+        f"every SimState leaf and emit row equal")
+
+
 def phase_paper(torch):
     from repro_torch.kernels.bfc_step import ops
-    from repro_torch.sim import engine, metrics, topology
-    from repro_torch.sim.tick_profile import paper_case
+    from repro_torch.sim import engine, metrics
     t0 = time.perf_counter()
-    clos, topo, flows, cfg = paper_case(SEED)
+    clos, topo, flows, cfg, dims, fops, tops = paper_operands(torch)
     n_ticks = int(flows.horizon + PAPER_DRAIN)
-    fops = engine.pack_flows(flows, cfg, "cuda")
-    tops = topology.pack_topo(topo, device="cuda")
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     say(f"[paper] fabric P={topo.n_ports} servers={clos.n_servers} "
@@ -395,8 +569,7 @@ def phase_paper(torch):
 
     ops.reset_launches()           # counts of the main path's run only
     t0 = time.perf_counter()
-    st, emits, active = engine.simulate(
-        topology.TopoDims.of(topo), cfg, fops, tops, n_ticks)
+    st, emits, active = engine.simulate(dims, cfg, fops, tops, n_ticks)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
@@ -419,6 +592,12 @@ def phase_paper(torch):
     if launches["bfc_fused"] != active:
         raise AssertionError(f"bfc_fused launched {launches['bfc_fused']} "
                              f"times for {active} simulated ticks")
+    got = {"active_ticks": active, "completed": m.completed,
+           "total": m.total, "p99": f"{m.fct_slowdown_p99:.4f}",
+           "avg": f"{m.fct_slowdown_avg:.4f}", "drops": m.drops,
+           "pauses": m.pauses}
+    if got != PAPER_EXPECT:
+        raise AssertionError(f"paper results {got} != {PAPER_EXPECT}")
     done = st.done >= 0
     if (st.delivered > flows.size_pkts).any() or \
             (st.delivered[done] != flows.size_pkts[done]).any() or \
@@ -859,6 +1038,7 @@ def main() -> int:
 
     worst, timing = phase_kernels(torch)
     phase_golden(torch)
+    phase_lockstep(torch)
     launches = phase_paper(torch)
     lm_worst, lm_timing = phase_lm_kernels(torch)
     cfg, params, lm_counts = phase_lm_prefill(torch)

@@ -1,7 +1,11 @@
 """Plain torch versions of the BFC switch decision kernels: the CPU path of
-`ops.fused` / `ops.decide` and the yardstick the CUDA kernels are held
-against on the card. Port of `repro.kernels.bfc_step.ref`."""
+`ops.derive` / `ops.fused` / `ops.decide` and the yardstick the CUDA
+kernels are held against on the card. `bfc_fused_ref` and `bfc_decide_ref`
+port `repro.kernels.bfc_step.ref`; `derive_ref` ports the simulator's
+phase 0 (`repro.sim.phases.ctx.derive`), which feeds `bfc_fused`."""
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -70,3 +74,81 @@ def bfc_fused_ref(occ, qpaused, ptr, blocked, *, pause_window: int,
     sel, can_tx = _pick(active & ~blocked[:, None], key, q, max_key)
     occ_after = occ - (can_tx[:, None] & (q_ix == sel[:, None])).to(I32)
     return n_act, th, pause, sel, can_tx, occ_after
+
+
+class DeriveOut(NamedTuple):
+    """What `derive_ref` (and the kernel's derive mode) return; the field
+    names are `sim.phases.ctx.StepCtx`'s."""
+    occ: torch.Tensor          # (P, Q) i32 pre-tx occupancy
+    port_occ: torch.Tensor     # (P,) i32
+    sw_occ: torch.Tensor       # (NSW,) i32
+    qpaused: torch.Tensor      # (P, Q) bool head-of-queue pause
+    th: torch.Tensor           # (P,) i32 dynamic pause threshold
+    pfc_paused: torch.Tensor   # (P,) bool
+    rem_src: torch.Tensor      # (F,) i32 incl. this tick's arrivals
+    ksel_q: torch.Tensor       # (P,) i32 DRR/SRF pick, -1 = none
+    kcan_tx: torch.Tensor      # (P,) bool
+    kocc_after: torch.Tensor   # (P, Q) i32 post-tx occupancy
+
+
+def derive_ref(qhead, qtail, qbuf, qptr, qsrf, bloom_rx, ing_occ,
+               pfc_paused, rem_src, fpos, arrival, size, port_switch,
+               port_is_nic, feeds, buffer_limit, t, *, n_switches: int,
+               backpressure: bool, pfc: bool, scheduler: str,
+               pfc_frac: float, pause_window: int) -> DeriveOut:
+    """The simulator's per-tick switch step (phase 0).
+
+    State: qhead, qtail, qsrf (P,Q) i32, qbuf (P,Q,CAP) i32 (entry =
+    flow * 2 + mark, -1 empty), qptr (P,) i32, bloom_rx (P,S,B) bool,
+    ing_occ (P,) i32, pfc_paused (P,) bool, rem_src (F,) i32, t () i32.
+    Flows: fpos (F,S) i32 Bloom positions, arrival, size (F,) i32.
+    Fabric: port_switch, feeds (P,) i32, port_is_nic (P,) bool,
+    buffer_limit () i32.
+
+    Queue occupancy, per-port and per-switch buffer fill, the head-of-queue
+    pause bits from the received Bloom snapshot, PFC hysteresis (pause
+    above the fed switch's threshold, resume below half of it), this
+    tick's flow arrivals at the sources -- and the switch decision of
+    `bfc_fused_ref` on them: PFC-paused and NIC ports are blocked."""
+    p, q, cap = qbuf.shape
+    dev = qhead.device
+    occ = qtail - qhead                                    # (P, Q)
+    port_occ = occ.sum(dim=1, dtype=I32)                   # (P,)
+    sw_occ = torch.zeros(n_switches, dtype=I32, device=dev).index_add(
+        0, port_switch.clamp(min=0).long(),
+        torch.where(port_is_nic, 0, port_occ))             # (NSW,)
+
+    head_entry = torch.gather(qbuf, 2,
+                              (qhead % cap).long()[..., None])[..., 0]
+    head_f = (head_entry >> 1).clamp(min=0)
+    if backpressure:
+        s = fpos.shape[1]
+        head_pos = fpos[head_f]                                  # (P, Q, S)
+        got = bloom_rx[torch.arange(p, device=dev)[:, None, None],
+                       torch.arange(s, device=dev)[None, None, :],
+                       head_pos]                                 # (P, Q, S)
+        qpaused = got.all(dim=-1) & (occ > 0)
+    else:
+        qpaused = torch.zeros((p, q), dtype=torch.bool, device=dev)
+
+    if pfc:
+        free_buf = (buffer_limit - sw_occ).clamp(min=0)
+        pfc_th = (pfc_frac * free_buf).to(I32).clamp(min=2)
+        th_here = torch.where(feeds >= 0, pfc_th[feeds.clamp(min=0)],
+                              1 << 30)
+        pfc_now = torch.where(pfc_paused, ing_occ > th_here // 2,
+                              ing_occ > th_here)
+    else:
+        pfc_now = torch.zeros((p,), dtype=torch.bool, device=dev)
+
+    rem_src = rem_src + size * (arrival == t)
+
+    blocked = pfc_now | port_is_nic
+    srf_key = qsrf.clamp(max=BIG) if scheduler == "srf" else None
+    _, th, _, ksel, kcan, kocc = bfc_fused_ref(
+        occ, qpaused, qptr, blocked, srf_key=srf_key,
+        pause_window=pause_window, scheduler=scheduler)
+    return DeriveOut(occ=occ, port_occ=port_occ, sw_occ=sw_occ,
+                     qpaused=qpaused, th=th, pfc_paused=pfc_now,
+                     rem_src=rem_src, ksel_q=ksel, kcan_tx=kcan,
+                     kocc_after=kocc)

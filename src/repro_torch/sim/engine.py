@@ -14,11 +14,18 @@ The runner is active-horizon aware, like the reference: it steps in
 `quiescent` predicate back to the host (the only host synchronisation of
 a segment). Once nothing can change but the closed-form leaves, the rest of
 the horizon is rebuilt by `_finish_tail`, bit-identically to stepping it;
-`early_exit=False` steps every tick. Ticks run as a Python loop of eager
-torch operations on the operands' device.
+`early_exit=False` steps every tick.
+
+On a CUDA device the ticks run through `TickGraph`: `GRAPH_TICKS` chained
+steps are captured once per `simulate` call as one CUDA graph and
+replayed, the counterpart of the reference's jitted segment `scan`; the
+host no longer issues each of a tick's ~680 launches. On the CPU ticks run
+as a Python loop of eager torch operations (`TickLoop`). The eager step
+stays reachable through `make_step`.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import NamedTuple
 
 import numpy as np
@@ -27,6 +34,7 @@ import torch
 from .. import resolve_device
 from ..core import bloom
 from ..core.flow_table import FlowTableParams, buckets_of
+from ..kernels.bfc_step import ops as kernel_ops
 from . import phases
 from .config import SimConfig
 from .phases import BIG, I32  # noqa: F401  (re-export for callers/tests)
@@ -41,6 +49,9 @@ F32 = torch.float32
 # runs once per segment, so a run overshoots the true quiescent point by
 # < one segment.
 DEFAULT_SEGMENT = 512
+# Ticks per captured CUDA graph (`TickGraph`); divides DEFAULT_SEGMENT, so
+# a segment is whole replays.
+GRAPH_TICKS = 32
 
 
 class FlowOperands(NamedTuple):
@@ -281,6 +292,118 @@ def _finish_tail(env, st: SimState, emits, topo_ops, n_ticks: int,
         since_dec=v.since_dec)
 
 
+def copy_state(dst: SimState, src: SimState) -> None:
+    """``dst[i].copy_(src[i])`` for every leaf, as one simultaneous
+    assignment: a source leaf that shares memory with another destination
+    leaf is cloned first, so no leaf is read after it was overwritten; a
+    source leaf that IS its destination is left alone."""
+    owners = {leaf.untyped_storage().data_ptr() for leaf in dst}
+    pending = []
+    for d, x in zip(dst, src):
+        if x.data_ptr() == d.data_ptr() and x.shape == d.shape:
+            continue
+        if x.untyped_storage().data_ptr() in owners:
+            x = x.clone()
+        pending.append((d, x))
+    for d, x in pending:
+        d.copy_(x)
+
+
+class TickLoop:
+    """Steps ticks one at a time as eager torch ops (the CPU runner)."""
+
+    def __init__(self, step, st: SimState, flow_ops, topo_ops, emits):
+        self.step, self.flow_ops, self.topo_ops = step, flow_ops, topo_ops
+        self.state, self.emits = st, emits
+
+    def _eager(self, st, t0, n):
+        for t in range(t0, t0 + n):
+            st, row = self.step(st, self.flow_ops, self.topo_ops)
+            self.emits[t] = row
+        return st
+
+    def advance(self, t0: int, n: int) -> None:
+        """Step ticks [t0, t0 + n), writing their emit rows."""
+        self.state = self._eager(self.state, t0, n)
+
+
+class TickGraph(TickLoop):
+    """Steps ticks `k` = GRAPH_TICKS at a time by replaying ONE captured
+    CUDA graph.
+
+    The first `k` ticks run eagerly, on a side stream on the card: they
+    load the kernels and warm everything a capture must not start. Then
+    the state is cloned into static tensors, and the graph of `_body` is
+    captured: `k` chained steps from the static state, each emit row into
+    a static (k, W) buffer, the new state copied back into the static
+    state (`copy_state`). A replay moves the rows to `emits[t0:t0+k]` with
+    one copy. Ticks left over (< k) step eagerly from the static state and
+    are copied back. The kernels' launches inside a replay happen without
+    their wrappers, so each replay adds the counts captured with the
+    graph (`kernel_ops.add_launches`). On the CPU `_body` runs eagerly in
+    place of a replay (what the tests hold against `TickLoop`). A capture
+    or replay that fails raises: there is no eager retry."""
+
+    def __init__(self, step, st, flow_ops, topo_ops, emits):
+        super().__init__(step, st, flow_ops, topo_ops, emits)
+        self.k = GRAPH_TICKS
+        self.cuda = emits.device.type == "cuda"
+        self.rows = None        # (k, W) static emit rows once prepared
+        self.graph = None
+        self.per_replay = {}
+
+    def _body(self) -> None:
+        st = self.state
+        for i in range(self.k):
+            st, row = self.step(st, self.flow_ops, self.topo_ops)
+            self.rows[i].copy_(row)
+        copy_state(self.state, st)
+
+    def _prepare(self, t0: int) -> None:
+        """Warm-up ticks [t0, t0 + k) eagerly, then the static state and
+        the capture."""
+        dev = self.emits.device
+        side = torch.cuda.Stream(dev) if self.cuda else None
+        if side is not None:
+            side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side) if side is not None else nullcontext():
+            st = self._eager(self.state, t0, self.k)
+        if side is not None:
+            torch.cuda.current_stream(dev).wait_stream(side)
+        self.state = SimState(*(leaf.clone() for leaf in st))
+        self.rows = torch.zeros((self.k,) + self.emits.shape[1:],
+                                dtype=self.emits.dtype, device=dev)
+        if self.cuda:
+            self.graph = torch.cuda.CUDAGraph()
+            kernel_ops.reset_captured()
+            with torch.cuda.graph(self.graph):
+                self._body()
+            self.per_replay = dict(kernel_ops.captured)
+
+    def _replay(self) -> None:
+        if self.graph is None:
+            self._body()
+            return
+        self.graph.replay()
+        kernel_ops.add_launches(self.per_replay)
+
+    def advance(self, t0: int, n: int) -> None:
+        t, end = t0, t0 + n
+        while end - t >= self.k:
+            if self.rows is None:
+                self._prepare(t)
+            else:
+                self._replay()
+                self.emits[t:t + self.k].copy_(self.rows)
+            t += self.k
+        if t < end:
+            st = self._eager(self.state, t, end - t)
+            if self.rows is None:
+                self.state = st
+            else:
+                copy_state(self.state, st)
+
+
 def simulate(dims: TopoDims, cfg: SimConfig, flow_ops: FlowOperands,
              topo_ops, n_ticks: int, *, segment: int = DEFAULT_SEGMENT,
              early_exit: bool = True):
@@ -289,45 +412,53 @@ def simulate(dims: TopoDims, cfg: SimConfig, flow_ops: FlowOperands,
     Returns `(state, emits[T, 3 + trace channels], active_ticks)`, all on
     the device but `active_ticks`, the tick the run actually stepped to
     before the closed-form tail took over (= n_ticks when no early exit).
-    The segmented runner reads `quiescent` once per `segment` ticks. Runs
-    under `torch.inference_mode` (no autograd bookkeeping per op), so the
+    The segmented runner reads `quiescent` once per `segment` ticks. On a
+    CUDA device the ticks replay a captured CUDA graph (`TickGraph`), on
+    the CPU they step eagerly (`TickLoop`). Runs under
+    `torch.inference_mode` (no autograd bookkeeping per op), so the
     returned tensors are inference tensors."""
     with torch.inference_mode():
-        return _simulate(dims, cfg, flow_ops, topo_ops, int(n_ticks),
+        env, init_state, step = make_step(dims, cfg,
+                                          flow_ops.arrival.shape[0],
+                                          flow_ops.arrival.device)
+        emits = torch.zeros((int(n_ticks), emit_width(cfg, dims)),
+                            dtype=I32, device=env.device)
+        runner = TickGraph if env.device.type == "cuda" else TickLoop
+        ticks = runner(step, init_state(), flow_ops, topo_ops, emits)
+        return run_ticks(env, ticks, step, flow_ops, topo_ops, int(n_ticks),
                          segment, early_exit)
 
 
-def _simulate(dims, cfg, flow_ops, topo_ops, n_ticks, segment, early_exit):
-    env, init_state, step = make_step(dims, cfg, flow_ops.arrival.shape[0],
-                                      flow_ops.arrival.device)
-    emit_w = EMIT_BASE + trace_layout(cfg.trace, dims.n_ports,
-                                      dims.n_switches).width
-    emits = torch.zeros((n_ticks, emit_w), dtype=I32, device=env.device)
-    st = init_state()
+def emit_width(cfg: SimConfig, dims: TopoDims) -> int:
+    return EMIT_BASE + trace_layout(cfg.trace, dims.n_ports,
+                                    dims.n_switches).width
 
-    def advance(st, t0, length):
-        for t in range(t0, t0 + length):
-            st, row = step(st, flow_ops, topo_ops)
-            emits[t] = row
-        return st, t0 + length
 
+def run_ticks(env, ticks: TickLoop, step, flow_ops, topo_ops, n_ticks: int,
+              segment: int = DEFAULT_SEGMENT, early_exit: bool = True):
+    """The segmented runner over `ticks` (a `TickLoop` or `TickGraph` whose
+    state is the initial state and whose emits are (n_ticks, W)): `simulate`
+    without the set-up."""
+    emits = ticks.emits
     if not early_exit or n_ticks == 0:
-        st, _ = advance(st, 0, n_ticks)
-        return st, emits, n_ticks
+        ticks.advance(0, n_ticks)
+        return ticks.state, emits, n_ticks
 
     # a segment never exceeds the horizon
     seg = min(segment, n_ticks)
     n_full, rem = divmod(n_ticks, seg)
     t = 0
-    while t < n_full * seg and not bool(quiescent(st, flow_ops)):
-        st, t = advance(st, t, seg)
-    if rem and not bool(quiescent(st, flow_ops)):
+    while t < n_full * seg and not bool(quiescent(ticks.state, flow_ops)):
+        ticks.advance(t, seg)
+        t += seg
+    if rem and not bool(quiescent(ticks.state, flow_ops)):
         # horizon not a segment multiple: run the remainder unless the loop
         # already went quiescent (then the tail covers it)
-        st, t = advance(st, t, rem)
+        ticks.advance(t, rem)
+        t += rem
     active = t
-    st = _finish_tail(env, st, emits, topo_ops, n_ticks, active, step,
-                      flow_ops)
+    st = _finish_tail(env, ticks.state, emits, topo_ops, n_ticks, active,
+                      step, flow_ops)
     return st, emits, active
 
 

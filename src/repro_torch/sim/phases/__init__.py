@@ -16,8 +16,8 @@ Phase order per tick:
   6. stats             histograms + next SimState + per-tick emit row
 """
 from .ctx import (ArrivalLayout, BIG, I32, PhaseEnv, StepCtx, build_layout,
-                  derive, fma, ftz, make_env, pairwise_rank, recip,
-                  subset_rank)
+                  derive, derive_operands, fma, ftz, make_env, pairwise_rank,
+                  recip, subset_rank)
 from .control import control
 from .switch_tx import switch_tx
 from .nic_tx import nic_tx
@@ -27,7 +27,8 @@ from .stats import stats, tail_emit_row, tail_hist
 
 __all__ = ["ArrivalLayout", "BIG", "CCVars", "I32", "PhaseEnv",
            "SORTS_PER_TICK", "StepCtx", "build_layout", "cc_laws",
-           "control", "derive", "feedback", "fma", "ftz", "make_env",
+           "control", "derive", "derive_operands", "feedback", "fma", "ftz",
+           "make_env",
            "nic_tx", "recip",
            "pairwise_rank", "stats", "subset_rank",
            "switch_tx", "tail_emit_row", "tail_hist"]

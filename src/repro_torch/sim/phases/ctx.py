@@ -310,6 +310,10 @@ def scatter_set(x, idx, val, axis: int = 0):
     pad = list(x.shape)
     pad[axis] = 1
     y = torch.cat([x, x.new_zeros(pad)], dim=axis)
+    if not isinstance(val, torch.Tensor):
+        # a Python value made on the device: indexing with it would copy a
+        # host tensor, which a CUDA graph cannot capture
+        val = torch.full((), val, dtype=x.dtype, device=x.device)
     y[tuple(idx)] = val
     out = y.narrow(axis, 0, x.shape[axis])
     return out if axis == 0 else out.contiguous()
@@ -399,62 +403,33 @@ def hop_of_port(routes, f, p):
 
 # ---- phase 0 -----------------------------------------------------------------
 
+def derive_operands(env: PhaseEnv, st, ops, topo):
+    """(args, kwargs) of the fused switch step (`kernel_ops.derive`) for
+    state `st`: what `derive` hands it, for holding the kernel against
+    its plain version on real states."""
+    pc = env.cfg.proto
+    args = (st.qhead, st.qtail, st.qbuf, st.qptr, st.qsrf, st.bloom_rx,
+            st.ing_occ, st.pfc_paused, st.rem_src, ops.fpos, ops.arrival,
+            ops.size, topo.port_switch, topo.port_is_nic, topo.feeds,
+            topo.buffer_limit, st.t)
+    kwargs = dict(n_switches=env.NSW, backpressure=pc.backpressure,
+                  pfc=pc.pfc, scheduler=pc.scheduler, pfc_frac=pc.pfc_frac,
+                  pause_window=env.cfg.timing.pause_window)
+    return args, kwargs
+
+
 def derive(env: PhaseEnv, st, ops, topo) -> StepCtx:
     """Phase 0: per-tick derived state.
 
     Queue occupancy, per-switch buffer fill, the head-of-queue pause bits
     from the received Bloom snapshot, PFC hysteresis, this tick's flow
-    arrivals at the sources -- and the switch decision: ONE call of the
-    fused switch step (`kernel_ops.fused`) computes the pause threshold, the
-    DRR/SRF pick and the post-tx occupancy of every port. On a CUDA tensor
-    that is the hand-written kernel, on a CPU tensor its plain version; the
-    decision inputs (occ, qpaused, qptr/qsrf, pfc_paused, port_is_nic) are
-    all fixed when `derive` ends, so `control` and `switch_tx` consume the
-    stashed result."""
-    pc, tm = env.cfg.proto, env.cfg.timing
-    P, Q, CAP = env.P, env.Q, env.CAP
-    ar = env.ar
-
-    t = st.t
-    occ = st.qtail - st.qhead                              # (P, Q)
-    port_occ = occ.sum(dim=1, dtype=I32)                   # (P,)
-    sw_occ = segment_sum(torch.where(topo.port_is_nic, 0, port_occ),
-                         topo.port_switch.clamp(min=0), env.NSW)  # (NSW,)
-
-    head_entry = torch.gather(st.qbuf, 2,
-                              (st.qhead % CAP).long()[..., None])[..., 0]
-    head_f = (head_entry >> 1).clamp(min=0)
-    if pc.backpressure:
-        head_pos = ops.fpos[head_f]                             # (P, Q, S)
-        got = st.bloom_rx[ar.p[:, None, None], ar.s[None, None, :],
-                          head_pos]                             # (P, Q, S)
-        qpaused = got.all(dim=-1) & (occ > 0)
-    else:
-        qpaused = torch.zeros((P, Q), dtype=torch.bool, device=env.device)
-
-    # PFC state (hysteresis: pause above th, resume below th/2)
-    if pc.pfc:
-        free_buf = (topo.buffer_limit - sw_occ).clamp(min=0)
-        pfc_th = (pc.pfc_frac * free_buf).to(I32).clamp(min=2)
-        th_here = torch.where(topo.feeds >= 0,
-                              pfc_th[topo.feeds.clamp(min=0)], 1 << 30)
-        pfc_paused = torch.where(st.pfc_paused,
-                                 st.ing_occ > th_here // 2,
-                                 st.ing_occ > th_here)
-    else:
-        pfc_paused = torch.zeros((P,), dtype=torch.bool, device=env.device)
-
-    # flow arrivals at sources
-    newly = ops.arrival == t
-    rem_src = st.rem_src + ops.size * newly
-
-    blocked = pfc_paused | topo.port_is_nic
-    srf_key = st.qsrf.clamp(max=BIG) if pc.scheduler == "srf" else None
-    _, th, _, ksel, kcan, kocc = kernel_ops.fused(
-        occ, qpaused, st.qptr, blocked, srf_key=srf_key,
-        pause_window=tm.pause_window, scheduler=pc.scheduler)
-
-    return StepCtx(t=t, occ=occ, port_occ=port_occ, sw_occ=sw_occ,
-                   qpaused=qpaused, th=th, pfc_paused=pfc_paused,
-                   rem_src=rem_src, ksel_q=ksel, kcan_tx=kcan,
-                   kocc_after=kocc)
+    arrivals at the sources -- and the switch decision (pause threshold,
+    DRR/SRF pick, post-tx occupancy of every port): ONE call of the fused
+    switch step (`kernel_ops.derive`). On a CUDA tensor that is one launch
+    of the hand-written kernel, on a CPU tensor its plain version
+    (`kernels.bfc_step.ref.derive_ref`). The decision inputs (occ,
+    qpaused, qptr/qsrf, pfc_paused, port_is_nic) are all fixed when
+    `derive` ends, so `control` and `switch_tx` consume the stashed
+    result."""
+    args, kwargs = derive_operands(env, st, ops, topo)
+    return StepCtx(t=st.t, **kernel_ops.derive(*args, **kwargs)._asdict())

@@ -6,6 +6,9 @@ Simulator: the JAX package's NamedTuples (`FlowOperands`, `TopoOperands`,
 `jax.device_get`) and go out as the port's NamedTuples on a device,
 keeping int32 / bool / float32. `assert_state_equal` compares two states
 leaf by leaf, bit for bit, and names the first leaf that differs.
+`random_derive_inputs` makes seeded operands of the fused switch step
+(`kernels.bfc_step.ops.derive`) at any (P, Q), for holding its kernel
+against its plain version.
 
 LM: `params_from_jax` loads a numpy parameter tree into the port's
 parameter modules, `cache_from_jax` maps a numpy cache (stacked or per-unit
@@ -84,6 +87,56 @@ def assert_state_equal(a, b, what: str = "") -> None:
         msg = first_difference(name, getattr(a, name), getattr(b, name))
         if msg is not None:
             raise AssertionError(f"{what}{': ' if what else ''}{msg}")
+
+
+DERIVE_ARGS = ("qhead", "qtail", "qbuf", "qptr", "qsrf", "bloom_rx",
+               "ing_occ", "pfc_paused", "rem_src", "fpos", "arrival", "size",
+               "port_switch", "port_is_nic", "feeds", "buffer_limit", "t")
+
+
+def random_derive_inputs(seed: int, p: int, q: int, device, *,
+                         buffer_limit=None, n_switches: int = 16,
+                         cap: int = 16, n_flows: int = 257):
+    """Seeded positional operands of `kernels.bfc_step.ops.derive` (in
+    `DERIVE_ARGS` order) on `device`: 4 Bloom stages of 64 bits, queues
+    with about half empty and a band of empty rows, head entries of every
+    flow or empty (-1), dense Bloom bits (about half the heads paused),
+    SRF keys below and above `BIG`, switch owners and fed switches with
+    NIC ports and servers (-1), a third of the ports PFC-paused, arrivals
+    at the chosen tick 37 for some flows. `buffer_limit` defaults to 500
+    above the median switch occupancy, so PFC thresholds spread over the
+    ingress counts."""
+    rng = np.random.default_rng(seed)
+    n_stages, bits, tick = 4, 64, 37
+    i32 = np.int32
+    qhead = rng.integers(0, 5000, (p, q)).astype(i32)
+    occ = rng.integers(0, 8, (p, q)) * (rng.random((p, q)) < 0.5)
+    occ[p // 3:p // 3 + max(1, p // 16)] = 0
+    port_switch = rng.integers(-1, n_switches, p).astype(i32)
+    port_is_nic = (port_switch < 0) & (rng.random(p) < 0.8)
+    if buffer_limit is None:
+        sw_occ = np.bincount(np.maximum(port_switch, 0),
+                             occ.sum(1) * ~port_is_nic, n_switches)
+        buffer_limit = int(np.median(sw_occ)) + 500
+    a = {
+        "qhead": qhead, "qtail": (qhead + occ).astype(i32),
+        "qbuf": rng.integers(-1, 2 * n_flows, (p, q, cap)).astype(i32),
+        "qptr": rng.integers(0, q, p).astype(i32),
+        "qsrf": rng.integers(0, 2 << 20, (p, q)).astype(i32),
+        "bloom_rx": rng.random((p, n_stages, bits)) < 0.85,
+        "ing_occ": rng.integers(0, 120, p).astype(i32),
+        "pfc_paused": rng.random(p) < 0.3,
+        "rem_src": rng.integers(0, 50, n_flows).astype(i32),
+        "fpos": rng.integers(0, bits, (n_flows, n_stages)).astype(i32),
+        "arrival": rng.integers(0, 80, n_flows).astype(i32),
+        "size": rng.integers(1, 100, n_flows).astype(i32),
+        "port_switch": port_switch,
+        "port_is_nic": port_is_nic,
+        "feeds": rng.integers(-1, n_switches, p).astype(i32),
+        "buffer_limit": np.asarray(buffer_limit, i32),
+        "t": np.asarray(tick, i32),
+    }
+    return [torch.from_numpy(np.array(a[k])).to(device) for k in DERIVE_ARGS]
 
 
 # ---- LM parameters and caches ---------------------------------------------------

@@ -1,7 +1,10 @@
-"""The port on the card: the CUDA kernels against their plain versions,
-one golden family end to end with the kernel launched once per simulated
-tick, and the reduced recurrentgemma and rwkv6 prefills through the LM
-kernels against the plain path on the CPU. Needs a CUDA device and nvcc (a CUDA kernel has no CPU
+"""The port on the card: the CUDA kernels against their plain versions
+(the fused switch step on seeded states and on states stepped from the
+golden case), the graphed runner against eager stepping (a golden family
+and the paper case's first 1024 ticks), golden families and the paper case
+end to end with the kernel launched once per simulated tick, and the
+reduced recurrentgemma and rwkv6 prefills through the LM kernels against
+the plain path on the CPU. Needs a CUDA device and nvcc (a CUDA kernel has no CPU
 mode), so every test here carries the `cuda` marker and skips elsewhere;
 run them on a GPU machine with
 
@@ -13,7 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch import configs  # noqa: E402
+from repro_torch import configs, testing  # noqa: E402
 from repro_torch.kernels.bfc_step import ops  # noqa: E402
 from repro_torch.kernels.bfc_step import ref as tref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -24,6 +27,9 @@ from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ref as wkv_ref  # noqa: E402
 from repro_torch.models import model  # noqa: E402
 from repro_torch.runtime import steps  # noqa: E402
+from repro_torch.sim import engine, phases, topology, workload  # noqa: E402
+from repro_torch.sim.config import PRESETS  # noqa: E402
+from repro_torch.sim.tick_profile import paper_case  # noqa: E402
 from repro_torch.sim.trace import golden  # noqa: E402
 
 pytestmark = [pytest.mark.tier1, pytest.mark.cuda]
@@ -88,6 +94,119 @@ def test_golden_family_on_card(card):
     out = golden.run_family("bfc", card)
     assert golden.compare("bfc", out) == []
     assert ops.launches["bfc_fused"] == out["active_ticks"] + 1
+
+
+def _assert_derive_equal(got, want, what):
+    for name, g, w in zip(tref.DeriveOut._fields, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, f"{what} {name}"
+        assert torch.equal(g, w), f"{what} {name}"
+
+
+DERIVE_FLAGS = {"bfc": (True, False), "bfc_pfc": (True, True),
+                "pfc": (False, True)}        # backpressure, pfc
+
+
+@pytest.mark.parametrize("buffer_limit", [None, 1 << 29])
+@pytest.mark.parametrize("flags", sorted(DERIVE_FLAGS))
+@pytest.mark.parametrize("scheduler", ["drr", "srf"])
+@pytest.mark.parametrize("p,q", [(384, 32), (384, 1), (384, 64), (97, 32),
+                                 (24, 32)])
+def test_derive_kernel_matches_plain_version(card, p, q, scheduler, flags,
+                                             buffer_limit):
+    """The fused switch step's kernel against `derive_ref` on seeded
+    states, every output equal (None: a tight buffer that spreads PFC
+    thresholds; 1 << 29: the infinite buffer)."""
+    args = testing.random_derive_inputs(p * q, p, q, card,
+                                        buffer_limit=buffer_limit)
+    bp, pfc = DERIVE_FLAGS[flags]
+    kw = dict(n_switches=16, backpressure=bp, pfc=pfc, scheduler=scheduler,
+              pfc_frac=0.11, pause_window=37)
+    before = ops.launches["bfc_fused"]
+    got = ops.derive(*args, **kw)
+    want = tref.derive_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches["bfc_fused"] == before + 1
+    _assert_derive_equal(got, want, f"{flags} {scheduler} ({p},{q})")
+
+
+def _golden_operands(name, card):
+    topo, flows = golden.golden_case()
+    flows = workload.pad_flowset(flows, golden.GOLDEN_PAD_FLOWS)
+    cfg = golden.golden_cfg(PRESETS[name])
+    dims = topology.TopoDims.of(topo)
+    fops = engine.pack_flows(flows, cfg, card)
+    tops = topology.pack_topo(topo, infinite_buffer=cfg.proto.infinite_buffer,
+                              device=card)
+    return dims, cfg, fops, tops
+
+
+@pytest.mark.parametrize("name", ["bfc", "bfc_srf", "bfc_pfc", "pfc",
+                                  "ideal_fq"])
+def test_derive_kernel_on_golden_states(card, name):
+    """The kernel against `derive_ref` on states of the golden case stepped
+    to ticks 150 and 300 on the card."""
+    dims, cfg, fops, tops = _golden_operands(name, card)
+    env = phases.make_env(dims, cfg, fops.arrival.shape[0], card)
+    for n in (150, 300):
+        st, _, _ = engine.simulate(dims, cfg, fops, tops, n,
+                                   early_exit=False)
+        args, kw = phases.derive_operands(env, st, fops, tops)
+        got = ops.derive(*args, **kw)
+        want = tref.derive_ref(*args, **kw)
+        torch.cuda.synchronize()
+        assert int(want.occ.sum()) > 0
+        _assert_derive_equal(got, want, f"{name} tick {n}")
+
+
+def _eager(dims, cfg, fops, tops, n_ticks):
+    """Step `n_ticks` with `make_step`'s eager step: (state, emits)."""
+    with torch.inference_mode():
+        _, init_state, step = engine.make_step(dims, cfg,
+                                               fops.arrival.shape[0],
+                                               fops.arrival.device)
+        st, rows = init_state(), []
+        for _ in range(n_ticks):
+            st, row = step(st, fops, tops)
+            rows.append(row)
+        return st, torch.stack(rows)
+
+
+@pytest.mark.parametrize("case", ["golden-bfc", "paper"])
+def test_graphed_simulate_matches_eager_steps(card, case):
+    """The graphed runner against eager stepping, every leaf and emit row
+    equal: the golden `bfc` case over 700 ticks (not a multiple of
+    GRAPH_TICKS), and the paper case's first 1024 ticks."""
+    if case == "paper":
+        _, topo, flows, cfg = paper_case()
+        dims = topology.TopoDims.of(topo)
+        fops = engine.pack_flows(flows, cfg, card)
+        tops = topology.pack_topo(topo, device=card)
+        n = 1024
+    else:
+        dims, cfg, fops, tops = _golden_operands("bfc", card)
+        n = 700
+    st, emits, active = engine.simulate(dims, cfg, fops, tops, n,
+                                        early_exit=False)
+    want_st, want_emits = _eager(dims, cfg, fops, tops, n)
+    assert active == n
+    testing.assert_state_equal(st, want_st, f"{case} graphed vs eager")
+    assert torch.equal(emits, want_emits)
+
+
+def test_paper_case_launches_once_per_active_tick(card):
+    """The whole paper run through the graphed runner: as many kernel
+    launches as active ticks (the replays add their captured launches)."""
+    _, topo, flows, cfg = paper_case()
+    dims = topology.TopoDims.of(topo)
+    fops = engine.pack_flows(flows, cfg, card)
+    tops = topology.pack_topo(topo, device=card)
+    ops.reset_launches()
+    st, _, active = engine.simulate(dims, cfg, fops, tops,
+                                    flows.horizon + 20_000)
+    torch.cuda.synchronize()
+    assert active == 29184
+    assert ops.launches == {"bfc_fused": active, "bfc_decide": 0}
+    assert int((st.done >= 0).sum()) == flows.n_flows
 
 
 @pytest.mark.parametrize("b,h,kh,s,t,hd,causal,window,dtype,tol", [
