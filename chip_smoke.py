@@ -9,10 +9,11 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
                 build the CUDA kernels from `src/repro_torch/.../csrc`,
                 print ptxas's registers and spills for every kernel
                 instance, and fail if one spills or has its wgmma
-                serialised (C7520); count HGMMA and local-memory
-                instructions in each bf16 attention kernel's SASS
-                (`cuobjdump`), and fail unless every one has HGMMA and
-                none touches local memory.
+                serialised (C7520); count HGMMA, HMMA and local-memory
+                instructions in the SASS (`cuobjdump`) of each bf16
+                attention kernel and each `wkv_kernel`, and fail unless
+                every attention kernel has HGMMA, every `wkv_kernel` HMMA,
+                and none touches local memory.
 2. kernels   -- `bfc_fused` as the main path runs it: the fused switch
                 step (the kernel's derive mode: occupancy, head-of-queue
                 Bloom lookup, PFC, arrivals at the sources and the pick, one
@@ -46,8 +47,11 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
                 a multiple of the 128-row q tile), and f32 (the CUDA-core
                 kernel) at four small shapes (causal and not, hd 256 with
                 a sliding window, hd 96); `rglru_scan` at the prefill
-                shape and a small one; each against its plain torch
-                version within the stated tolerances; CUDA-event timings
+                shape and two small ones (S under one 128-token tile, W
+                not a multiple of the 32-channel tile); each against its
+                plain torch version within the stated tolerances, and
+                `rglru_scan` called twice with equal results (its
+                look-back scratch is reset every call); CUDA-event timings
                 of kernel, plain version and SDPA, and the bounds.
 7. lm-prefill -- full-width recurrentgemma-2b in bf16 (random weights from
                 a seeded generator on the card): `make_prefill_step` at
@@ -60,10 +64,15 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
 9. lm-serve  -- `BFCServer` on the bf16 model, 8 slots, 16 requests from 4
                 clients, 16 new tokens each: all complete; tokens/s of
                 this toy load (a smoke result, not a serving benchmark).
-10. rwkv-kernels -- `wkv` against its plain version (the chunked form): bf16
-                r, k, v at the prefill shape (2, 4096, 40, 64) and f32 at
-                three small shapes, out and hT within 1e-5 of max|ref|;
-                CUDA-event timings of kernel and plain version, the bound.
+10. rwkv-kernels -- `wkv` against its plain version: bf16 r, k, v at the
+                prefill shape (2, 4096, 40, 64) and f32 at six small
+                shapes (D = 16, 32, 64; a ragged S = 37 against the
+                token-by-token form, the others against the chunked form;
+                log w = -5 throughout, the overflow edge of e^{-cs}), out
+                and hT within 1e-5 of max|ref|, each called twice with
+                equal results; CUDA-event timings of kernel and plain
+                version, the bound (bytes against the chunked form's
+                operations at the TF32 tensor rate).
 11. rwkv-prefill -- full-width rwkv6-3b in bf16 (random weights from a
                 seeded generator on the card), parameters within the JAX
                 nameplate band: `make_prefill_step` at B=2, S=4096; wall
@@ -142,8 +151,9 @@ FLASH_SMALL = [(2, 4, 2, 128, 128, 64, True, 0),
                (1, 2, 1, 320, 320, 256, True, 100),
                (1, 4, 4, 160, 160, 96, True, 0)]
 SCAN_PATH = (2, 4096, 2560)       # the prefill's RG-LRU scan (B, S, W)
-SCAN_SMALL = (3, 72, 96)          # S and W not multiples of the unroll
-                                  # (16) and block (64): the ragged edges
+# small scans: S under one 128-token tile, and with W not a multiple of
+# the 32-channel tile
+SCAN_SMALL = [(3, 72, 96), (2, 100, 40)]
 # Tolerances (atol, rtol), |got - want| <= atol + rtol * |want|: attention
 # in float32 2e-5 as the JAX package's kernel test (tests/test_kernels.py:51);
 # in bf16 the kernel rounds P to bf16 before the P V product on the tensor
@@ -152,7 +162,8 @@ SCAN_SMALL = (3, 72, 96)          # S and W not multiples of the unroll
 # and round the output once, so they differ by about one bf16 ulp (2^-7 of
 # |want| at most) plus P's rounding: 1e-2 relative, 4e-3 absolute for
 # outputs near 0. The scan 1e-4 (the kernel sums sequentially, the plain
-# version in the chunked cumsum form)
+# version in the chunked cumsum form; the kernel composes sub-chunk and
+# tile pairs, then steps sequentially from each carry)
 FLASH_TOL = {"bfloat16": (4e-3, 1e-2), "float32": (2e-5, 2e-5)}
 SCAN_TOL = (1e-4, 1e-4)
 LM_REL_TOL = 1e-3                 # lm-consistency: max|d| / max|ref|
@@ -162,15 +173,22 @@ RWKV_ARCH = "rwkv6-3b"
 RWKV_CONSISTENCY_S = 1024         # 64 chunks of the plain version's 16
 RWKV_PARAMS = (2.5e9, 3.1e9)      # tests/test_models_smoke.py:122
 WKV_PATH = (2, 4096, 40, 64)      # the prefill's WKV (B, S, H, D), bf16
-WKV_SMALL = [(1, 128, 4, 32), (2, 32, 1, 64), (2, 64, 2, 64)]   # f32; the
-                                  # JAX package's kernel test shapes
-# max|d| / max|ref| on out and hT: the kernel runs the recurrence token by
-# token, the plain version in 16-token chunks; the JAX package's two forms
-# are 3.9e-7 apart in float32 at (1, 2048, 2, 64)
+# small f32 cases (B, S, H, D, log w = -5 throughout): the JAX package's
+# kernel test shapes; a ragged S (37, against the token-by-token form);
+# the reduced config's D = 16; the overflow edge of e^{-cs} (e^80)
+WKV_SMALL = [((1, 128, 4, 32), False), ((2, 32, 1, 64), False),
+             ((2, 64, 2, 64), False), ((1, 37, 2, 64), False),
+             ((2, 64, 2, 16), False), ((1, 64, 2, 64), True)]
+# max|d| / max|ref| on out and hT: the kernel and the plain version both
+# take 16-token chunks, the kernel with 3xTF32 tensor-core products (each
+# ~2^-21 relative; single-pass TF32 misses by ~50x); the JAX package's
+# chunked and token-by-token forms are 3.9e-7 apart in float32 at
+# (1, 2048, 2, 64)
 WKV_REL_TOL = 1e-5
-# H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, and float32
-# outside the tensor cores (the scan's exp and multiply-add)
+# H100 SXM dense peaks (NVIDIA data sheet): bf16 and TF32 tensor cores,
+# and float32 outside the tensor cores (the scan's exp and multiply-add)
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
 
 
@@ -611,8 +629,9 @@ def phase_paper(torch):
 
 def build_kernels():
     """One nvcc per kernel source, all started together. Fails if ptxas
-    reports a spill or serialised wgmma (C7520) in any kernel, or if a
-    bf16 attention kernel's SASS has no HGMMA or touches local memory."""
+    reports a spill or serialised wgmma (C7520) in any kernel, if a bf16
+    attention kernel's SASS has no HGMMA or a `wkv_kernel`'s no HMMA, or
+    if either touches local memory."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.bfc_step import bfc_step
@@ -635,14 +654,26 @@ def build_kernels():
                 f"a kernel of {m.SOURCE.name} "
                 + ("spills registers to local memory" if spilled else
                    "has its wgmma serialised by ptxas (C7520)"))
-    sass = {fn: c for fn, c in nvcc.sass_counts(paths[1]).items()
-            if fn.startswith("flash_fwd_bf16_kernel")}
-    for fn, (hgmma, local) in sass.items():
-        say(f"[setup] sass {fn}: {hgmma} HGMMA, {local} LDL/STL")
-    if len(sass) != len(flash_attention.HEAD_DIMS) or any(
-            hgmma == 0 or local for hgmma, local in sass.values()):
-        raise AssertionError("every bf16 attention kernel must use HGMMA "
-                             "and no local memory")
+    for path, prefix, op, n in (
+            (paths[1], "flash_fwd_bf16_kernel", "hgmma",
+             len(flash_attention.HEAD_DIMS)),
+            (paths[3], "wkv_kernel", "hmma", 2 * len(wkv.HEAD_DIMS))):
+        sass = {fn: c for fn, c in nvcc.sass_counts(path).items()
+                if fn.startswith(prefix)}
+        for fn, c in sass.items():
+            say(f"[setup] sass {fn}: {c.hgmma} HGMMA, {c.hmma} HMMA, "
+                f"{c.local} LDL/STL")
+        if len(sass) != n or any(getattr(c, op) == 0 or c.local
+                                 for c in sass.values()):
+            raise AssertionError(f"every {prefix} instance must use "
+                                 f"{op.upper()} and no local memory")
+
+
+def repeat(torch, name, shape, got, again) -> None:
+    """Two calls on the same inputs give identical outputs."""
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError(f"{name} {shape}: a second call on the same "
+                             "inputs gives other results")
 
 
 def within(torch, got, want, tol) -> float:
@@ -735,14 +766,16 @@ def phase_lm_kernels(torch):
         say(f"[lm-kernels] flash_attention {name} {shape} max_abs_err="
             f"{err:.3e} (atol, rtol {FLASH_TOL[name]})")
         worst["flash_attention"] = max(worst["flash_attention"], err)
-    for b, s, w in (SCAN_PATH, SCAN_SMALL):
+    for b, s, w in [SCAN_PATH] + SCAN_SMALL:
         la, bb, h0 = scan_inputs(torch, gen, b, s, w)
         got = rglru.rglru_scan(la, bb, h0)
+        again = rglru.rglru_scan(la, bb, h0)
         want = rglru_scan_ref(la, bb, h0)
         torch.cuda.synchronize()
         err = max(within(torch, g, w_, SCAN_TOL) for g, w_ in zip(got, want))
+        repeat(torch, "rglru_scan", (b, s, w), got, again)
         say(f"[lm-kernels] rglru_scan {(b, s, w)} max_abs_err={err:.3e} "
-            f"(atol, rtol {SCAN_TOL})")
+            f"(atol, rtol {SCAN_TOL}); a second call equal")
         worst["rglru_scan"] = max(worst["rglru_scan"], err)
 
     # timings at the prefill's shapes
@@ -785,41 +818,51 @@ def phase_lm_kernels(torch):
     return worst, timing
 
 
-def wkv_inputs(torch, gen, b, s, h, d, dtype):
-    """r, k, v in `dtype`; log w in the model's clipped range; a non-zero
-    h0."""
+def wkv_inputs(torch, gen, b, s, h, d, dtype, clip=False):
+    """r, k, v in `dtype`; log w in the model's clipped range, or -5
+    throughout (`clip`); a non-zero h0."""
     def normal(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
     r, k, v = (normal(b, s, h, d).mul(0.5).to(dtype) for _ in range(3))
     logw = -normal(b, s, h, d).clamp(-10.0, 1.6).exp().clamp(1e-6, 5.0)
+    if clip:
+        logw = torch.full_like(logw, -5.0)
     return r, k, v, logw, normal(h, d) * 0.3, normal(b, h, d, d) * 0.2
 
 
 def wkv_bound(b, s, h, d, itemsize):
-    """Bytes: r, k, v in the input type, logw, u, h0 read and out, hT
-    written once, float32 otherwise. Operations per token and head: the
-    read-out r.S (2 D^2) and the update w*S + k^T v (3 D^2), the bonus
-    (r*u*k summed, times v: 4 D) and exp(logw) (D), float32 on the CUDA
-    cores."""
+    """(bound_ms, bound_by, bytes, operations). Bytes: r, k, v in the
+    input type, logw, u, h0 read and out, hT written once, float32
+    otherwise. Operations: the chunked form's products per chunk and head
+    -- att = r_dec k_sc^T and att v (2 C^2 D each), r_dec S and k_dec^T v
+    (2 C D^2 each) -- at the dense TF32 tensor rate."""
+    from repro_torch.kernels.rwkv6.ref import CHUNK as C
     n = b * s * h * d
     nbytes = 3 * itemsize * n + 4 * (2 * n + h * d + 2 * b * h * d * d)
-    flops = b * s * h * (5 * d * d + 5 * d)
+    flops = b * h * -(-s // C) * (4 * C * C * d + 4 * C * d * d)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops = flops / TF32_FLOPS * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, nbytes, flops
 
 
 def phase_rwkv_kernels(torch):
     from repro_torch.kernels.rwkv6 import wkv
-    from repro_torch.kernels.rwkv6.ref import wkv_chunked_ref
+    from repro_torch.kernels.rwkv6.ref import wkv_chunked_ref, wkv_seq_ref
     gen = torch.Generator("cuda").manual_seed(SEED)
     worst = 0.0
-    for shape, dtype in ([(WKV_PATH, torch.bfloat16)]
-                         + [(c, torch.float32) for c in WKV_SMALL]):
-        x = wkv_inputs(torch, gen, *shape, dtype)
+    for shape, dtype, clip in ([(WKV_PATH, torch.bfloat16, False)]
+                               + [(c, torch.float32, clip)
+                                  for c, clip in WKV_SMALL]):
+        x = wkv_inputs(torch, gen, *shape, dtype, clip)
         got = wkv.wkv(*x)
-        want = wkv_chunked_ref(*x)
+        again = wkv.wkv(*x)
+        # the chunked form takes whole chunks; a ragged S the
+        # token-by-token form
+        plain = wkv_chunked_ref if shape[1] % 16 == 0 else wkv_seq_ref
+        want = plain(*x)
         torch.cuda.synchronize()
+        repeat(torch, "wkv", shape, got, again)
         rel, err = 0.0, 0.0
         for g, w in zip(got, want):
             if g.shape != w.shape or g.dtype != w.dtype or \
@@ -830,8 +873,10 @@ def phase_rwkv_kernels(torch):
             rel = max(rel, rel_err(torch, g, w))
             err = max(err, float((g - w).abs().max()))
         name = str(dtype).split(".")[-1]
-        say(f"[rwkv-kernels] wkv {name} {shape} max_abs_err={err:.3e} "
-            f"max|d|/max|ref|={rel:.3e} (tol {WKV_REL_TOL})")
+        say(f"[rwkv-kernels] wkv {name} {shape}{' logw=-5' if clip else ''}"
+            f" max_abs_err={err:.3e} max|d|/max|ref|={rel:.3e} (tol "
+            f"{WKV_REL_TOL}, against {plain.__name__}); a second call "
+            f"equal")
         if not rel <= WKV_REL_TOL:
             raise AssertionError(f"wkv {shape} differs from its plain "
                                  f"version: {rel:.3e}")
@@ -841,13 +886,17 @@ def phase_rwkv_kernels(torch):
     plain = [event_ms(torch, lambda: wkv_chunked_ref(*x), 3)]
     kern = [event_ms(torch, lambda: wkv.wkv(*x), 20) for _ in range(2)]
     plain.append(event_ms(torch, lambda: wkv_chunked_ref(*x), 3))
-    b_ms, b_by = wkv_bound(*WKV_PATH, itemsize=2)
+    b_ms, b_by, nbytes, flops = wkv_bound(*WKV_PATH, itemsize=2)
     timing = {"ms": min(kern), "plain_ms": min(plain), "bound_ms": b_ms,
               "bound_by": b_by, "library_ms": None}
     say(f"[rwkv-kernels] time wkv bf16 {WKV_PATH}: kernel "
         + "/".join(f"{t:.4f}" for t in kern) + " ms, plain "
         + "/".join(f"{t:.4f}" for t in plain)
-        + f" ms, bound {b_ms:.4f} ms ({b_by}); no single PyTorch call")
+        + f" ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes at "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s = "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {flops} chunked-form "
+        f"operations at {TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 = "
+        f"{flops / TF32_FLOPS * 1e3:.4f} ms); no single PyTorch call")
     return worst, timing
 
 

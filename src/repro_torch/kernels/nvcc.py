@@ -15,6 +15,7 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -102,9 +103,15 @@ def ptxas_report(log: str) -> tuple[list[str], bool, bool]:
     return lines, spilled, serialized
 
 
+class Sass(NamedTuple):
+    """Instruction counts of one kernel's SASS."""
+    hgmma: int          # warpgroup tensor-core products (wgmma)
+    hmma: int           # warp tensor-core products (mma.sync)
+    local: int          # local-memory loads and stores (LDL/STL)
+
+
 def sass_counts(lib: Path) -> dict:
-    """{kernel: (HGMMA instructions, local-memory LDL/STL instructions)}
-    in the SASS of a built library (`cuobjdump -sass`)."""
+    """{kernel: Sass} in the SASS of a built library (`cuobjdump -sass`)."""
     tool = Path(nvcc_path()).parent / "cuobjdump"
     out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                          text=True, check=True).stdout
@@ -113,8 +120,9 @@ def sass_counts(lib: Path) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = kernel_name(m.group(1))
-            counts[fn] = [0, 0]
+            counts[fn] = [0, 0, 0]
         elif fn:
             counts[fn][0] += "HGMMA" in line
-            counts[fn][1] += bool(re.search(r"\b(LDL|STL)\b", line))
-    return {fn: tuple(c) for fn, c in counts.items()}
+            counts[fn][1] += "HMMA" in line
+            counts[fn][2] += bool(re.search(r"\b(LDL|STL)\b", line))
+    return {fn: Sass(*c) for fn, c in counts.items()}

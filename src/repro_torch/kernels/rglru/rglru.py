@@ -38,8 +38,10 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.rglru_scan_launch.argtypes = [vp] * 5 + [i] * 3 + [vp]
+        lib.rglru_scan_launch.argtypes = [vp] * 6 + [i] * 3 + [vp]
         lib.rglru_scan_launch.restype = i
+        lib.rglru_scan_scratch_words.argtypes = [i] * 3
+        lib.rglru_scan_scratch_words.restype = ctypes.c_int64
         _lib = lib
     return _lib
 
@@ -69,9 +71,14 @@ def rglru_scan(log_a, b, h0):
         return h_all, h_last.copy_(h0)
     if h_last.numel() == 0:
         return h_all, h_last
-    err = _load().rglru_scan_launch(
+    # the look-back's scratch, sized by the kernel's own tiles; the launch
+    # zeroes what must start at zero
+    lib = _load()
+    scratch = torch.empty(lib.rglru_scan_scratch_words(bsz, s, w),
+                          dtype=torch.int32, device=log_a.device)
+    err = lib.rglru_scan_launch(
         log_a.data_ptr(), b.data_ptr(), h0.data_ptr(), h_all.data_ptr(),
-        h_last.data_ptr(), bsz, s, w,
+        h_last.data_ptr(), scratch.data_ptr(), bsz, s, w,
         torch.cuda.current_stream(log_a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rglru_scan launch failed with cudaError_t "

@@ -242,20 +242,28 @@ def test_flash_attention_matches_plain_version(card, b, h, kh, s, t, hd,
                                rtol=tol[1])
 
 
-@pytest.mark.parametrize("b,s,w", [(2, 1024, 2560), (3, 72, 96)])
+# the last two: S under one 128-token tile with W not a multiple of the
+# 32-channel tile; 32 tiles along S of a narrow W
+@pytest.mark.parametrize("b,s,w", [(2, 1024, 2560), (3, 72, 96),
+                                   (2, 100, 40), (2, 4096, 72)])
 def test_rglru_scan_matches_plain_version(card, b, s, w):
-    """Tolerance 1e-4: the kernel sums sequentially, the plain version in
-    the chunked cumsum form."""
+    """Tolerance 1e-4: the kernel composes sub-chunk and tile pairs and
+    steps sequentially from each carry, the plain version takes the
+    chunked cumsum form. A second call on the same inputs gives identical
+    outputs (the look-back scratch is reset every call, and a carry does
+    not depend on how far the other tiles had got)."""
     gen = torch.Generator(card).manual_seed(b * s)
     log_a = -torch.rand((b, s, w), generator=gen, device=card) * 0.1
     bb = torch.randn((b, s, w), generator=gen, device=card)
     h0 = torch.randn((b, w), generator=gen, device=card)
     before = lru_ops.launches["rglru_scan"]
     got = lru_ops.scan(log_a, bb, h0)
+    again = lru_ops.scan(log_a, bb, h0)
     want = rglru_scan_ref(log_a, bb, h0)
     torch.cuda.synchronize()
-    assert lru_ops.launches["rglru_scan"] == before + 1
-    for g, w_ in zip(got, want):
+    assert lru_ops.launches["rglru_scan"] == before + 2
+    for g, a, w_ in zip(got, again, want):
+        assert torch.equal(g, a)
         torch.testing.assert_close(g, w_, atol=1e-4, rtol=1e-4)
 
 
@@ -333,25 +341,39 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
-@pytest.mark.parametrize("b,s,h,d,dtype,plain", [
-    (2, 1024, 40, 64, "bfloat16", "chunked"),     # rwkv6-3b's heads
-    (1, 128, 4, 32, "float32", "chunked"),
-    (2, 64, 2, 16, "float32", "chunked"),         # the reduced config's
-    (1, 37, 2, 64, "float32", "sequential"),      # a ragged last run
+@pytest.mark.parametrize("b,s,h,d,dtype,plain,clip", [
+    (2, 1024, 40, 64, "bfloat16", "chunked", False),   # rwkv6-3b's heads
+    (1, 128, 4, 32, "float32", "chunked", False),
+    (2, 64, 2, 16, "float32", "chunked", False),       # the reduced config's
+    (1, 37, 2, 64, "float32", "sequential", False),    # a ragged last chunk
+    (1, 37, 2, 16, "float32", "sequential", False),    # the same at D = 16
+    (1, 64, 2, 64, "float32", "sequential", True),     # the overflow edge
+    (1, 37, 2, 16, "float32", "sequential", True),
 ])
-def test_wkv_matches_plain_version(card, b, s, h, d, dtype, plain):
-    """Tolerance max|d| / max|ref| <= 1e-5: the kernel runs the recurrence
-    token by token, the plain version in 16-token chunks (3.9e-7 apart in
-    float32 at (1, 2048, 2, 64) with the JAX package's two forms)."""
-    x = _wkv_inputs(card, b, s, h, d, getattr(torch, dtype))
+def test_wkv_matches_plain_version(card, b, s, h, d, dtype, plain, clip):
+    """Tolerance max|d| / max|ref| <= 1e-5: the kernel takes 16-token
+    chunks with 3xTF32 tensor-core products, the plain versions chunks in
+    float32 or single tokens (the JAX package's two forms are 3.9e-7
+    apart in float32 at (1, 2048, 2, 64)). With `clip`, log w = -5
+    throughout, the model's clip, where e^{-cs} reaches e^80 inside a
+    chunk: the masked half of att may overflow and must be dropped by a
+    select, so the outputs must also be finite."""
+    r, k, v, logw, u, h0 = _wkv_inputs(card, b, s, h, d,
+                                       getattr(torch, dtype))
+    if clip:
+        logw = torch.full_like(logw, -5.0)
+    x = (r, k, v, logw, u, h0)
     before = wkv_ops.launches["wkv"]
     got = wkv_ops.wkv(*x)
+    again = wkv_ops.wkv(*x)
     want = (wkv_ref.wkv_chunked_ref if plain == "chunked"
             else wkv_ref.wkv_seq_ref)(*x)
     torch.cuda.synchronize()
-    assert wkv_ops.launches["wkv"] == before + 1
-    for g, w in zip(got, want):
+    assert wkv_ops.launches["wkv"] == before + 2
+    for g, a, w in zip(got, again, want):
         assert g.dtype == torch.float32 and g.shape == w.shape
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g, a)
         assert _rel(g, w) <= 1e-5
 
 

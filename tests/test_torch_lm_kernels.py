@@ -1,9 +1,12 @@
 """The plain versions of the port's LM kernels against the JAX package:
 the flash attention twin against `attention_ref` and against the model's
-naive, chunked and windowed attention; the RG-LRU scan twin against
-`rglru_scan_ref` and `chunked_linear_scan`. Inputs are made with numpy
-from a seed and handed to both. (Never against the Pallas interpret path:
-it raises under jax 0.9.)"""
+naive, chunked and windowed attention; the RG-LRU scan twin and the CUDA
+kernel's decomposition (`rglru_scan_tiles_ref`: sub-chunk and tile pairs
+chained along S) against `rglru_scan_ref` and `chunked_linear_scan`.
+Inputs are made with numpy from a seed and handed to both. (Never against
+the Pallas interpret path: it raises under jax 0.9.)"""
+import re
+
 import numpy as np
 import pytest
 
@@ -18,6 +21,7 @@ from repro.models import rglru as jrglru  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.rglru import ops as lru_ops  # noqa: E402
+from repro_torch.kernels.rglru import rglru as lru_kernel  # noqa: E402
 from repro_torch.kernels.rglru import ref as lru_ref  # noqa: E402
 
 pytestmark = pytest.mark.tier1
@@ -108,6 +112,36 @@ def test_scan_twin_matches_jax(b, s, w, chunk):
                                    atol=SCAN_TOL, rtol=SCAN_TOL)
         np.testing.assert_allclose(got_last.numpy(), np.asarray(want_last),
                                    atol=SCAN_TOL, rtol=SCAN_TOL)
+
+
+# several tiles of 128 tokens; a ragged S and a W not a multiple of the
+# 32-channel tile; S under one tile; one tile exactly
+@pytest.mark.parametrize("b,s,w", [
+    (2, 512, 64), (1, 200, 72), (3, 72, 96), (2, 128, 40),
+])
+def test_scan_kernel_decomposition_matches_jax(b, s, w):
+    la, bb, h0 = _scan_inputs(b * 7 + s + w, b, s, w)
+    j = [jnp.asarray(x) for x in (la, bb, h0)]
+    got_all, got_last = lru_ref.rglru_scan_tiles_ref(
+        *(torch.from_numpy(x) for x in (la, bb, h0)))
+    wants = [jlru_ref.rglru_scan_ref(*j)]
+    if s % 128 == 0 or s < 128:           # JAX's chunked form takes these
+        wants.append(jrglru.chunked_linear_scan(*j))
+    for want_all, want_last in wants:
+        np.testing.assert_allclose(got_all.numpy(), np.asarray(want_all),
+                                   atol=SCAN_TOL, rtol=SCAN_TOL)
+        np.testing.assert_allclose(got_last.numpy(), np.asarray(want_last),
+                                   atol=SCAN_TOL, rtol=SCAN_TOL)
+
+
+def test_scan_decomposition_has_the_kernel_tile():
+    """rglru_scan_tiles_ref follows csrc/rglru.cu's tile: kL = kSub *
+    kWarps tokens per tile, kSub per thread."""
+    src = lru_kernel.SOURCE.read_text()
+    const = {m[1]: int(m[2]) for m in re.finditer(
+        r"constexpr int (kSub|kWarps) = (\d+);", src)}
+    assert lru_ref.SUB == const["kSub"]
+    assert lru_ref.TILE == const["kSub"] * const["kWarps"]
 
 
 def test_cpu_tensors_take_the_plain_path_without_a_launch():

@@ -1,14 +1,20 @@
 """The port's RWKV-6 pieces against the JAX package on the CPU: the WKV
-plain versions against `wkv_chunked` and `wkv_ref`, the single-token
-closed form against `wkv_chunked` at s=1, and the time and channel mixes
-with and without a cache. Inputs are made with numpy from a seed and
+plain versions against `wkv_chunked` and `wkv_ref`, the CUDA kernel's
+decomposition (`wkv_tiles_ref`: its chunk pipeline, padded ragged tail
+and 3xTF32 products) against both, the single-token closed form against
+`wkv_chunked` at s=1, and the time and channel mixes with and without a
+cache. Inputs are made with numpy from a seed and
 handed to both. (Never against the Pallas interpret path: it raises under
 jax 0.9.)
 
 Tolerances: the chunked twin against JAX's chunked form 1e-5 (the same
 arithmetic in float32, another summation order); anything against the
-sequential oracle 1e-3, as tests/test_kernels.py:101-106; the mixes 1e-4,
-as the model tests."""
+sequential oracle 1e-3, as tests/test_kernels.py:101-106; the kernel's
+decomposition max|d| / max|ref| <= 1e-5 against both JAX forms, the
+tolerance `chip_smoke.py` holds the kernel to; the mixes 1e-4, as the
+model tests."""
+import re
+
 import numpy as np
 import pytest
 
@@ -28,6 +34,7 @@ from repro_torch.models import nn, rwkv6  # noqa: E402
 pytestmark = pytest.mark.tier1
 
 CHUNKED_TOL, SEQ_TOL, MIX_TOL = 1e-5, 1e-3, 1e-4
+WKV_REL_TOL = 1e-5                   # max|d| / max|ref|, as chip_smoke.py
 
 
 def _wkv_inputs(seed, b, s, h, d):
@@ -64,6 +71,63 @@ def test_chunked_twin_matches_jax(b, s, h, d, chunk):
     seq_o, seq_h = jwkv_ref.wkv_ref(*j)
     _close(got_o, seq_o, SEQ_TOL, "out vs wkv_ref")
     _close(got_h, seq_h, SEQ_TOL, "hT vs wkv_ref")
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+# D = 64, 32 and 16; a ragged S (37); S under one 16-token chunk; the
+# model's extreme clip, log w = -5 throughout (e^{-cs} reaches e^80)
+@pytest.mark.parametrize("b,s,h,d,clip", [
+    (2, 64, 2, 64, False), (1, 48, 2, 32, False), (2, 32, 2, 16, False),
+    (1, 37, 2, 64, False), (1, 8, 2, 64, False), (1, 64, 2, 64, True),
+])
+def test_kernel_decomposition_matches_jax(b, s, h, d, clip):
+    x = _wkv_inputs(b * 100 + s + d, b, s, h, d)
+    if clip:
+        x = x[:3] + (np.full((b, s, h, d), -5.0, np.float32),) + x[4:]
+    got_o, got_h = wkv_ref.wkv_tiles_ref(*(torch.from_numpy(a) for a in x))
+    j = [jnp.asarray(a) for a in x]
+    wants = [jwkv_ref.wkv_ref(*j)]
+    if s % 16 == 0 or s < 16:             # JAX's chunked form takes these
+        wants.append(jrwkv.wkv_chunked(*j))
+    for want_o, want_h in wants:
+        assert _rel(got_o, want_o) <= WKV_REL_TOL
+        assert _rel(got_h, want_h) <= WKV_REL_TOL
+
+
+def test_single_pass_tf32_misses_the_tolerance_3xtf32_holds():
+    """Why the kernel splits every product: one TF32 pass keeps ~3 digits
+    (here ~5e-4 of max|ref|), the 3xTF32 split ~1e-6."""
+    x = _wkv_inputs(5, 2, 64, 2, 64)
+    want_o, want_h = jrwkv.wkv_chunked(*(jnp.asarray(a) for a in x))
+    t = [torch.from_numpy(a) for a in x]
+    one_o, one_h = wkv_ref.wkv_tiles_ref(*t, passes=1)
+    three_o, three_h = wkv_ref.wkv_tiles_ref(*t, passes=3)
+    assert min(_rel(one_o, want_o), _rel(one_h, want_h)) > 10 * WKV_REL_TOL
+    assert max(_rel(three_o, want_o), _rel(three_h, want_h)) <= WKV_REL_TOL
+
+
+def test_kernel_decomposition_has_the_kernel_chunk():
+    """wkv_tiles_ref follows csrc/wkv.cu's chunk of kC tokens."""
+    from repro_torch.kernels.rwkv6 import wkv
+    m = re.search(r"constexpr int kC = (\d+);", wkv.SOURCE.read_text())
+    assert wkv_ref.CHUNK == int(m[1])
+
+
+@pytest.mark.parametrize("x,rounded,truncated", [
+    (1 + 2.0 ** -11, 1 + 2.0 ** -10, 1.0),     # a tie: away from zero
+    (-(1 + 2.0 ** -11), -(1 + 2.0 ** -10), -1.0),
+    (1 + 2.0 ** -12, 1.0, 1.0),                # below half: down
+    (1 + 3 * 2.0 ** -12, 1 + 2.0 ** -10, 1.0), # above half: up
+    (2.0 ** -100, 2.0 ** -100, 2.0 ** -100),   # exact: unchanged
+])
+def test_tf32_rounding_is_cvt_rna_and_truncation(x, rounded, truncated):
+    t = torch.tensor([x], dtype=torch.float32)
+    assert wkv_ref._tf32(t, rna=True).item() == rounded
+    assert wkv_ref._tf32(t, rna=False).item() == truncated
 
 
 @pytest.mark.parametrize("b,s,h,d", [(2, 32, 2, 16), (1, 48, 1, 64)])
