@@ -21,11 +21,13 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
                 (`derive_ref`) on seeded states at FUSED_SHAPES (DRR and
                 SRF; the flags of bfc, bfc_pfc and pfc; a tight and an
                 infinite buffer) and on the paper case's state at tick 2048
-                under bfc, bfc_srf and bfc_pfc; the standalone `bfc_fused`
-                (DRR and SRF) and `bfc_decide` against theirs; exact
-                equality of every output. CUDA-event timings of kernel,
-                plain version and the memory/operation bound at the main
-                path's shapes.
+                under bfc, bfc_srf and bfc_pfc; the same mode over K lanes
+                laid side by side in one launch (a cluster per lane): seeded
+                mixed fabrics at K = 1, 3, 8 and 40, and the paper state as
+                1, 8 and 32 lanes; the standalone `bfc_fused` (DRR and SRF)
+                and `bfc_decide` against theirs; exact equality of every
+                output. CUDA-event timings of kernel, plain version and the
+                memory/operation bound at the main paths' shapes.
 3. golden    -- all 16 PRESETS families on the pinned golden case through
                 the graphed runner (a CUDA graph of `engine.GRAPH_TICKS`
                 ticks, replayed), emits, trace channels and active ticks
@@ -40,6 +42,15 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
                 which must equal the simulated ticks; the results must be
                 the port's known ones (29184 active ticks, 4000/4000
                 completed, p99 3.1873, avg 1.2394, 0 drops, 11064 pauses).
+5b. sweep    -- the sweep lane axis (`sim.sweep`): a golden-scale
+                `run_grid` of bfc and dctcp x 3 fabrics (one with 4-tick
+                links) x 2 seeds, each lane against its serial graphed run
+                (trimmed state, emits, active ticks); then 8 paper-case bfc
+                lanes (seeds 0-7) as one batch: lane 0 equal to the paper
+                run and its known results, every lane's delivery and
+                slowdown invariants, one `bfc_fused` launch per stepped
+                tick for all lanes; wall time, per-lane active ticks, and
+                lanes x active ticks/s against the single lane's ticks/s.
 6. lm-kernels -- `flash_attention`, bf16 (the tensor-core kernel) at the
                 prefill shape and at five small shapes (GQA causal;
                 non-causal cross with ragged S and T; hd 256 with a
@@ -83,7 +94,9 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
                 token by token (plain torch), relative error <= 1e-3.
 13. rwkv-serve -- `BFCServer` on the bf16 rwkv6-3b, the lm-serve load: all
                 complete (a smoke result).
-14. report   -- one `kernels` JSON line, then the device JSON line last.
+14. report   -- one `kernels` JSON line (`bfc_fused_lanes`: the derive mode
+                over 8 paper lanes, launches from the sweep phase's batch),
+                then the device JSON line last.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero
 without a result when CUDA is unavailable or the port is not beside it.
@@ -121,12 +134,27 @@ OPS_PER_ELEMENT_DERIVE = 30
 PAPER_DRAIN = 20_000
 PAPER_STATE_TICK = 2048           # kernels phase: paper-case states here
 PAPER_STATE_PRESETS = ("bfc", "bfc_srf", "bfc_pfc")
+LANE_CHECKS = (1, 3, 8, 40)       # kernels phase: seeded lanes per launch
+LANE_TIMINGS = (1, 8, 32)         # ... and paper-state lanes per launch
 LOCKSTEP_TICKS = 1024
 # what the paper run must give (the port's results since it was first run)
 PAPER_EXPECT = {"active_ticks": 29184, "completed": 4000, "total": 4000,
                 "p99": "3.1873", "avg": "1.2394", "drops": 0,
                 "pauses": 11064}
 GOLDEN_WORKERS = 4
+# sweep phase: (a) a golden-scale grid, 2 protocols x 3 fabrics x 2 seeds
+GRID_PROTOS = ("bfc", "dctcp")
+GRID_FABRICS = (dict(n_servers=8, n_tor=2, n_spine=2,
+                     switch_buffer_pkts=512),
+                dict(n_servers=12, n_tor=2, n_spine=3,
+                     switch_buffer_pkts=1024),
+                dict(n_servers=8, n_tor=2, n_spine=2, prop_ticks=4,
+                     switch_buffer_pkts=512))
+GRID_SEEDS = (1, 2)
+GRID_FLOWS = 40
+GRID_DRAIN = 2000
+# ... and (b) 8 paper-case bfc lanes, seeds 0-7, in one batch
+SWEEP_LANES = 8
 
 # LM slice: recurrentgemma-2b prefill + BFCServer decode
 LM_ARCH = "recurrentgemma-2b"
@@ -329,7 +357,9 @@ def paper_state(torch, name, n_ticks):
     return phases.derive_operands(env, st, fops, tops)
 
 
-def check_derive(torch, what, args, kw) -> int:
+def check_derive(torch, what, args, kw):
+    """(plain version's result, max_abs_err) of the fused switch step on
+    these operands; raises unless the kernel's result is equal."""
     from repro_torch.kernels.bfc_step import bfc_step, ref
     got = bfc_step.derive(*args, **kw)
     want = ref.derive_ref(*args, **kw)
@@ -341,46 +371,14 @@ def check_derive(torch, what, args, kw) -> int:
                                  name for name, g, w in zip(
                                      ref.DeriveOut._fields, got, want)
                                  if not torch.equal(g, w)))
-    return want
+    return want, err
 
 
-def phase_derive(torch):
-    """The main path's kernel (the fused switch step) against its plain
-    version, exact, on seeded and paper-case states; its timings at the
-    paper case's state at tick PAPER_STATE_TICK under `bfc`."""
-    from repro_torch import testing
+def time_derive(torch, what, args, kw, want):
+    """Device and issued times of the fused switch step and its plain
+    version on these operands, and the bound; printed and returned as the
+    `kernels` line's fields."""
     from repro_torch.kernels.bfc_step import bfc_step, ref
-    flags = {"bfc": (True, False), "bfc_pfc": (True, True),
-             "pfc": (False, True)}        # backpressure, pfc
-    n = 0
-    for p, q in FUSED_SHAPES:
-        for sched in ("drr", "srf"):
-            for fam, (bp, pfc) in flags.items():
-                for limit in (None, 1 << 29):
-                    args = testing.random_derive_inputs(
-                        SEED + n, p, q, "cuda", buffer_limit=limit)
-                    kw = dict(n_switches=16, backpressure=bp, pfc=pfc,
-                              scheduler=sched, pfc_frac=0.11,
-                              pause_window=PAUSE_WINDOW)
-                    check_derive(torch, f"{fam} {sched} ({p},{q})", args, kw)
-                    n += 1
-    say(f"[kernels] bfc_fused (fused switch step) {n} seeded states at "
-        f"{FUSED_SHAPES}: max_abs_err=0")
-    states = {}
-    for name in PAPER_STATE_PRESETS:
-        t0 = time.perf_counter()
-        args, kw = paper_state(torch, name, PAPER_STATE_TICK)
-        want = check_derive(torch, f"paper {name}", args, kw)
-        states[name] = (args, kw, want)
-        say(f"[kernels] bfc_fused (fused switch step) paper case {name} "
-            f"tick {PAPER_STATE_TICK}: max_abs_err=0; "
-            f"{int((want.occ > 0).sum())} non-empty queues, "
-            f"{int(want.kcan_tx.sum())} ports transmit, "
-            f"{int(want.qpaused.sum())} head-paused, "
-            f"{int(want.pfc_paused.sum())} PFC-paused "
-            f"({time.perf_counter() - t0:.2f}s)")
-
-    args, kw, want = states["bfc"]
     kern = lambda: bfc_step.derive(*args, **kw)          # noqa: E731
     plain = lambda: ref.derive_ref(*args, **kw)          # noqa: E731
     host = {"plain": time_ms(torch, plain), "kernel": time_ms(torch, kern)}
@@ -388,7 +386,7 @@ def phase_derive(torch):
     dev["kernel"] = [device_ms(torch, kern), device_ms(torch, kern)]
     dev["plain"].append(device_ms(torch, plain))
     b_ms, b_by = derive_bound(args, kw, want)
-    say(f"[kernels] time bfc_fused (fused switch step) paper bfc state, "
+    say(f"[kernels] time bfc_fused (fused switch step) {what}, "
         f"P={args[0].shape[0]} Q={args[0].shape[1]} per call: device (CUDA "
         f"graph of {GRAPH_CALLS} calls, CUDA events) kernel "
         + "/".join(f"{v * 1e3:.3f}" for v in dev["kernel"])
@@ -400,11 +398,86 @@ def phase_derive(torch):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def phase_derive(torch):
+    """The main path's kernel (the fused switch step) against its plain
+    version, exact, on seeded and paper-case states, one lane per launch
+    and K lanes laid side by side in one launch (a cluster per lane); its
+    timings at the paper case's state at tick PAPER_STATE_TICK under `bfc`,
+    alone and as LANE_TIMINGS lanes. Returns ((max_abs_err one lane,
+    max_abs_err lanes), timing one lane, timing of 8 lanes)."""
+    from repro_torch import testing
+    flags = {"bfc": (True, False), "bfc_pfc": (True, True),
+             "pfc": (False, True)}        # backpressure, pfc
+    n, err1, errk = 0, 0, 0
+    for p, q in FUSED_SHAPES:
+        for sched in ("drr", "srf"):
+            for fam, (bp, pfc) in flags.items():
+                for limit in (None, 1 << 29):
+                    args = testing.random_derive_inputs(
+                        SEED + n, p, q, "cuda", buffer_limit=limit)
+                    kw = dict(n_switches=16, backpressure=bp, pfc=pfc,
+                              scheduler=sched, pfc_frac=0.11,
+                              pause_window=PAUSE_WINDOW)
+                    err1 = max(err1, check_derive(
+                        torch, f"{fam} {sched} ({p},{q})", args, kw)[1])
+                    n += 1
+    say(f"[kernels] bfc_fused (fused switch step) {n} seeded states at "
+        f"{FUSED_SHAPES}: max_abs_err={err1}")
+    p, q = MAIN_SHAPE
+    for lanes in LANE_CHECKS:
+        # each lane its own fabric tables; odd lanes the infinite buffer,
+        # even lanes a tight one of their own (a per-lane limit table)
+        alone = [testing.random_derive_inputs(
+            SEED + 1000 * lanes + k, p, q, "cuda",
+            buffer_limit=(1 << 29) if k % 2 else None)
+            for k in range(lanes)]
+        args = testing.stack_derive_lanes(alone, 16)
+        for sched in ("drr", "srf"):
+            for fam, (bp, pfc) in flags.items():
+                kw = dict(n_switches=16 * lanes, lanes=lanes,
+                          backpressure=bp, pfc=pfc, scheduler=sched,
+                          pfc_frac=0.11, pause_window=PAUSE_WINDOW)
+                errk = max(errk, check_derive(
+                    torch, f"{lanes} lanes {fam} {sched}", args, kw)[1])
+    say(f"[kernels] bfc_fused (fused switch step) lanes {LANE_CHECKS} of "
+        f"seeded mixed fabrics (P={p} Q={q} each), one launch per call, "
+        f"DRR and SRF, {len(flags)} flag sets: max_abs_err={errk}")
+    states = {}
+    for name in PAPER_STATE_PRESETS:
+        t0 = time.perf_counter()
+        args, kw = paper_state(torch, name, PAPER_STATE_TICK)
+        want, err = check_derive(torch, f"paper {name}", args, kw)
+        err1 = max(err1, err)
+        states[name] = (args, kw, want)
+        say(f"[kernels] bfc_fused (fused switch step) paper case {name} "
+            f"tick {PAPER_STATE_TICK}: max_abs_err=0; "
+            f"{int((want.occ > 0).sum())} non-empty queues, "
+            f"{int(want.kcan_tx.sum())} ports transmit, "
+            f"{int(want.qpaused.sum())} head-paused, "
+            f"{int(want.pfc_paused.sum())} PFC-paused "
+            f"({time.perf_counter() - t0:.2f}s)")
+
+    args, kw, want = states["bfc"]
+    one = time_derive(torch, "paper bfc state", args, kw, want)
+    timings = {}
+    for lanes in LANE_TIMINGS:
+        # the paper state as `lanes` lanes of one batch, one launch
+        largs = testing.stack_derive_lanes([args] * lanes, kw["n_switches"])
+        lkw = {**kw, "n_switches": kw["n_switches"] * lanes, "lanes": lanes}
+        lwant, err = check_derive(torch, f"paper bfc x{lanes} lanes", largs,
+                                  lkw)
+        errk = max(errk, err)
+        timings[lanes] = time_derive(torch, f"paper bfc state x{lanes} "
+                                     f"lanes", largs, lkw, lwant)
+        del largs, lwant
+    return (err1, errk), one, timings[8]
+
+
 def phase_kernels(torch):
     from repro_torch.kernels.bfc_step import bfc_step, ref
     rng = np.random.default_rng(SEED)
-    worst = {"bfc_fused": 0, "bfc_decide": 0}
-    main_timing = phase_derive(torch)
+    (err1, errk), main_timing, lanes_timing = phase_derive(torch)
+    worst = {"bfc_fused": err1, "bfc_fused_lanes": errk, "bfc_decide": 0}
     for sched in ("drr", "srf"):
         for p, q in FUSED_SHAPES:
             occ, qp, ptr, blk, key = kernel_inputs(torch, rng, p, q,
@@ -484,8 +557,10 @@ def phase_kernels(torch):
     say(f"[kernels] time bfc_fused (standalone) srf P={p} Q={q} per call: "
         f"device {srf * 1e3:.3f} us, bound "
         f"{bound(p, q, fused=True, srf=True)[0] * 1e3:.4f} us")
-    # the kernels line's bfc_fused row is the main path's kernel
+    # the kernels line's bfc_fused row is the main path's kernel, the
+    # derive mode; bfc_fused_lanes the same mode over 8 lanes of a sweep
     timing["bfc_fused"] = main_timing
+    timing["bfc_fused_lanes"] = lanes_timing
     return worst, timing
 
 
@@ -574,7 +649,7 @@ def phase_lockstep(torch):
 
 def phase_paper(torch):
     from repro_torch.kernels.bfc_step import ops
-    from repro_torch.sim import engine, metrics
+    from repro_torch.sim import engine
     t0 = time.perf_counter()
     clos, topo, flows, cfg, dims, fops, tops = paper_operands(torch)
     n_ticks = int(flows.horizon + PAPER_DRAIN)
@@ -594,28 +669,31 @@ def phase_paper(torch):
 
     st = engine.to_numpy(st)
     emits = emits.cpu().numpy()
-    m = metrics.summarize("bfc", st, emits, flows, n_links=topo.n_ports,
-                          occ_bin_ref=clos.switch_buffer_pkts,
-                          cap=cfg.proto.queue_cap)
+    m = check_paper_lane(st, emits, flows, topo, clos, cfg)
     say(f"[paper] wall={wall:.2f}s active_ticks={active} "
         f"ticks_per_s={active / wall:.1f} completed={m.completed}/{m.total} "
         f"fct_slowdown_p99={m.fct_slowdown_p99:.4f} "
         f"fct_slowdown_avg={m.fct_slowdown_avg:.4f} drops={m.drops} "
         f"pauses={m.pauses} bfc_fused_launches={launches['bfc_fused']}")
 
-    # the repo's own invariants on what came out
     if emits.shape != (n_ticks, 3) or int(st.t) != n_ticks:
         raise AssertionError(f"emits {emits.shape} / t {int(st.t)} for "
                              f"{n_ticks} ticks")
     if launches["bfc_fused"] != active:
         raise AssertionError(f"bfc_fused launched {launches['bfc_fused']} "
                              f"times for {active} simulated ticks")
-    got = {"active_ticks": active, "completed": m.completed,
-           "total": m.total, "p99": f"{m.fct_slowdown_p99:.4f}",
-           "avg": f"{m.fct_slowdown_avg:.4f}", "drops": m.drops,
-           "pauses": m.pauses}
-    if got != PAPER_EXPECT:
-        raise AssertionError(f"paper results {got} != {PAPER_EXPECT}")
+    check_paper_expect(m, active)
+    return launches, (st, emits, active, wall)
+
+
+def check_paper_lane(st, emits, flows, topo, clos, cfg):
+    """The repo's own invariants on one paper-case run (host state trimmed
+    to its flows): delivery counters within the flow sizes, finite FCT
+    slowdowns >= 1. Returns its `RunMetrics`."""
+    from repro_torch.sim import metrics
+    m = metrics.summarize("bfc", st, emits, flows, n_links=topo.n_ports,
+                          occ_bin_ref=clos.switch_buffer_pkts,
+                          cap=cfg.proto.queue_cap)
     done = st.done >= 0
     if (st.delivered > flows.size_pkts).any() or \
             (st.delivered[done] != flows.size_pkts[done]).any() or \
@@ -624,6 +702,117 @@ def phase_paper(torch):
     if not (m.completed > 0 and np.isfinite(m.fct_slowdown_p99)
             and np.isfinite(m.fct_slowdown_avg) and m.fct_slowdown_avg >= 1):
         raise AssertionError("FCT slowdowns are not finite and >= 1")
+    return m
+
+
+def check_paper_expect(m, active) -> None:
+    got = {"active_ticks": int(active), "completed": m.completed,
+           "total": m.total, "p99": f"{m.fct_slowdown_p99:.4f}",
+           "avg": f"{m.fct_slowdown_avg:.4f}", "drops": m.drops,
+           "pauses": m.pauses}
+    if got != PAPER_EXPECT:
+        raise AssertionError(f"paper results {got} != {PAPER_EXPECT}")
+
+
+def phase_sweep(torch, paper_run):
+    """The sweep lane axis on the card (`sim.sweep`): (a) a golden-scale
+    `run_grid` of GRID_PROTOS x GRID_FABRICS (one with 4-tick links) x
+    GRID_SEEDS, each lane against its own serial graphed run (trimmed
+    state, emits, active ticks); (b) SWEEP_LANES paper-case `bfc` lanes
+    (seeds 0 to SWEEP_LANES - 1) as one batch: lane 0 against the paper
+    phase's run and PAPER_EXPECT, every lane the delivery and slowdown
+    invariants, and one `bfc_fused` launch per stepped tick of the batch.
+    Returns the launch counts of (b), this slice's main path."""
+    from repro_torch import testing
+    from repro_torch.kernels.bfc_step import ops
+    from repro_torch.sim import engine, sweep, topology, workload
+    from repro_torch.sim.config import PRESETS, SimConfig
+    from repro_torch.sim.tick_profile import paper_case
+
+    # (a) the golden-scale grid, batched, against serial graphed runs
+    cases, topos = [], []
+    for proto in GRID_PROTOS:
+        for fab in GRID_FABRICS:
+            clos = topology.ClosParams(**fab)
+            topo = topology.build(clos)
+            for seed in GRID_SEEDS:
+                flows = workload.generate(topo, workload.WorkloadParams(
+                    workload="fb_hadoop", load=0.5, seed=seed), GRID_FLOWS)
+                cases.append((f"{proto}/{clos.n_servers}srv/"
+                              f"prop{clos.prop_ticks}/s{seed}",
+                              SimConfig(proto=PRESETS[proto], clos=clos),
+                              flows))
+                topos.append(topo)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    results = sweep.run_grid(topos[0], cases, drain=GRID_DRAIN)
+    t_grid = time.perf_counter() - t0
+    grid_launches = ops.launches["bfc_fused"]
+    n_ticks = int(max(f.horizon for _, _, f in cases) + GRID_DRAIN)
+    t0 = time.perf_counter()
+    for (label, cfg, flows), topo, res in zip(cases, topos, results):
+        dims = topology.TopoDims.of(topo)
+        st, em, act = engine.simulate(
+            dims, cfg, engine.pack_flows(flows, cfg, "cuda"),
+            topology.pack_topo(topo, infinite_buffer=cfg.proto.infinite_buffer,
+                               device="cuda"), n_ticks)
+        testing.assert_state_equal(
+            res.state, sweep.trim_state(engine.to_numpy(st), flows.n_flows,
+                                        dims), f"grid lane {label}")
+        if not np.array_equal(res.emits, em.cpu().numpy()) or \
+                res.active_ticks != act:
+            raise AssertionError(f"grid lane {label}: emits or active ticks "
+                                 "differ from its serial run")
+    t_serial = time.perf_counter() - t0
+    say(f"[sweep] grid of {len(cases)} golden-scale cases ({GRID_PROTOS} x "
+        f"{len(GRID_FABRICS)} fabrics, one at 4-tick links, x {len(GRID_SEEDS)}"
+        f" seeds, {GRID_FLOWS} flows, {n_ticks} ticks) in "
+        f"{len(GRID_PROTOS)} batches: {t_grid:.2f}s, bfc_fused launches "
+        f"{grid_launches}; the {len(cases)} serial graphed runs "
+        f"{t_serial:.2f}s; every lane's state, emits and active ticks "
+        f"equal its serial run's (active "
+        f"{[r.active_ticks for r in results]})")
+    if grid_launches == 0:
+        raise AssertionError("the grid launched no fused switch step")
+
+    # (b) SWEEP_LANES paper-case lanes in one batch: the slice's main path
+    p_st, p_em, p_active, p_wall = paper_run
+    lanes = [paper_case(seed) for seed in range(SWEEP_LANES)]
+    clos, topo, _, cfg = lanes[0]
+    n_ticks = p_em.shape[0]         # the paper run's: lane 0's horizon + drain
+    ops.reset_launches()            # counts of the main path's run only
+    t0 = time.perf_counter()
+    st, emits = sweep.run_batch(topo, [c[2] for c in lanes], cfg, n_ticks)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    active = sweep.last_active_ticks()
+    dims = topology.TopoDims.of(topo)
+    for k, (_, _, flows, _) in enumerate(lanes):
+        lane = sweep.select_config(st, k, flows.n_flows, dims)
+        m = check_paper_lane(lane, emits[k], flows, topo, clos, cfg)
+        if k == 0:
+            testing.assert_state_equal(
+                lane, sweep.trim_state(p_st, flows.n_flows, dims),
+                "paper lane 0 vs the paper phase's run")
+            if not np.array_equal(emits[0], p_em) or active[0] != p_active:
+                raise AssertionError("paper lane 0: emits or active ticks "
+                                     "differ from the paper phase's run")
+            check_paper_expect(m, active[0])
+        say(f"[sweep] paper lane {k} (seed {k}): active_ticks={active[k]} "
+            f"completed={m.completed}/{m.total} "
+            f"fct_slowdown_p99={m.fct_slowdown_p99:.4f} "
+            f"fct_slowdown_avg={m.fct_slowdown_avg:.4f} drops={m.drops} "
+            f"pauses={m.pauses}")
+    if launches["bfc_fused"] != int(max(active)):
+        raise AssertionError(f"bfc_fused launched {launches['bfc_fused']} "
+                             f"times for {int(max(active))} stepped ticks")
+    rate, single = int(active.sum()) / wall, p_active / p_wall
+    say(f"[sweep] {SWEEP_LANES} paper lanes in one batch: wall={wall:.2f}s, "
+        f"stepped ticks {int(max(active))}, bfc_fused launches "
+        f"{launches['bfc_fused']} (one per stepped tick for all lanes); "
+        f"{rate:.1f} lanes*active ticks/s against the single lane's "
+        f"{single:.1f} ticks/s ({rate / single:.2f}x); lane 0 equals the "
+        f"paper run and PAPER_EXPECT")
     return launches
 
 
@@ -1088,7 +1277,9 @@ def main() -> int:
     worst, timing = phase_kernels(torch)
     phase_golden(torch)
     phase_lockstep(torch)
-    launches = phase_paper(torch)
+    launches, paper_run = phase_paper(torch)
+    sweep_launches = phase_sweep(torch, paper_run)
+    del paper_run
     lm_worst, lm_timing = phase_lm_kernels(torch)
     cfg, params, lm_counts = phase_lm_prefill(torch)
     phase_consistency(torch, "lm-consistency", LM_ARCH, CONSISTENCY_S)
@@ -1102,8 +1293,11 @@ def main() -> int:
     phase_serve(torch, "rwkv-serve", cfg, params)
 
     kdir = "src/repro_torch/kernels"
+    sweep_launches = {"bfc_fused_lanes": sweep_launches["bfc_fused"]}
     rows = [("bfc_fused", f"{kdir}/bfc_step/csrc/bfc_step.cu",
              "src/repro/kernels/bfc_step/bfc_step.py:146", launches),
+            ("bfc_fused_lanes", f"{kdir}/bfc_step/csrc/bfc_step.cu",
+             "src/repro/kernels/bfc_step/bfc_step.py:146", sweep_launches),
             ("bfc_decide", f"{kdir}/bfc_step/csrc/bfc_step.cu",
              "src/repro/kernels/bfc_step/bfc_step.py:75", launches),
             ("flash_attention",

@@ -9,7 +9,8 @@ and wraps each entry point:
 * `derive`     -- the simulator's per-tick switch step: occupancy, the
   head-of-queue Bloom lookup, PFC, the arrivals at the sources and the
   threshold + DRR/SRF pick + occupancy update of `bfc_fused`, from the
-  state in one launch; called once per simulated tick by
+  state in one launch for every lane of a batch (a cluster per lane);
+  called once per simulated tick by
   `sim.phases.ctx.derive` (through `ops.derive`). Its launches count as
   `bfc_fused`'s: it is the main path's counterpart of that TPU kernel;
 * `bfc_fused`  -- the TPU kernel's own contract: threshold + DRR/SRF pick
@@ -44,7 +45,6 @@ launches = {"bfc_fused": 0, "bfc_decide": 0}
 captured = {"bfc_fused": 0, "bfc_decide": 0}
 
 MODES = {"bfc_decide": 0, "bfc_fused": 1, "derive": 2}
-CLUSTER_BLOCKS = 8                 # csrc: kClusterBlocks
 SMEM_LIMIT = 48 * 1024             # a block's shared memory without opt-in
 
 _lib = None
@@ -63,7 +63,7 @@ class _Params(ctypes.Structure):
         + [(n, ctypes.c_int) for n in (
             "n_rows", "nq", "rows_per_block", "pause_window", "sentinel",
             "cap", "n_stages", "stage_bits", "n_switches", "n_flows",
-            "backpressure", "pfc")]
+            "lanes", "limit_per_lane", "backpressure", "pfc")]
         + [("pfc_frac", ctypes.c_float)])
 
 
@@ -102,6 +102,9 @@ def _load():
                                         ctypes.POINTER(_Params),
                                         ctypes.c_void_p]
         lib.bfc_step_launch.restype = ctypes.c_int
+        lib.bfc_step_derive_smem_bytes.argtypes = [ctypes.c_int,
+                                                   ctypes.c_int]
+        lib.bfc_step_derive_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
     return _lib
 
@@ -208,12 +211,12 @@ def bfc_decide(occ, qpaused, ptr, *, pause_window: int):
 
 def derive(qhead, qtail, qbuf, qptr, qsrf, bloom_rx, ing_occ, pfc_paused,
            rem_src, fpos, arrival, size, port_switch, port_is_nic, feeds,
-           buffer_limit, t, *, n_switches: int, backpressure: bool,
-           pfc: bool, scheduler: str, pfc_frac: float,
+           buffer_limit, t, *, n_switches: int, lanes: int = 1,
+           backpressure: bool, pfc: bool, scheduler: str, pfc_frac: float,
            pause_window: int) -> DeriveOut:
-    """The simulator's per-tick switch step on the card, in one launch: see
-    `ref.derive_ref` for the operand contract. Its launch counts as
-    `bfc_fused`'s."""
+    """The simulator's per-tick switch step on the card, in one launch of
+    one thread block cluster per lane: see `ref.derive_ref` for the operand
+    contract. Its launch counts as `bfc_fused`'s."""
     _on_cuda("qhead", qhead)
     if qbuf.dim() != 3 or fpos.dim() != 2 or bloom_rx.dim() != 3:
         raise ValueError("qbuf (P,Q,CAP), bloom_rx (P,S,B) and fpos (F,S) "
@@ -234,12 +237,18 @@ def derive(qhead, qtail, qbuf, qptr, qsrf, bloom_rx, ing_occ, pfc_paused,
             ("port_switch", port_switch, i32, (p,)),
             ("port_is_nic", port_is_nic, u8, (p,)), ("feeds", feeds, i32,
                                                      (p,)),
-            ("buffer_limit", buffer_limit, i32, ()), ("t", t, i32, ())):
+            ("buffer_limit", buffer_limit, i32,
+             () if buffer_limit.dim() == 0 else (lanes,)),
+            ("t", t, i32, ())):
         _check(name, x, dtype, shape, dev)
-    rows = -(-p // CLUSTER_BLOCKS)
-    if 4 * (3 * rows + 2 * n_switches) > SMEM_LIMIT:
-        raise ValueError(f"{p} ports and {n_switches} switches do not fit "
-                         f"a block's {SMEM_LIMIT} bytes of shared memory")
+    if lanes < 1 or p % lanes or f % lanes or n_switches % lanes:
+        raise ValueError(f"{p} ports, {f} flows and {n_switches} switches "
+                         f"do not split into {lanes} lanes")
+    if _load().bfc_step_derive_smem_bytes(
+            p // lanes, n_switches // lanes) > SMEM_LIMIT:
+        raise ValueError(f"{p // lanes} ports and {n_switches // lanes} "
+                         f"switches per lane do not fit a block's "
+                         f"{SMEM_LIMIT} bytes of shared memory")
     sentinel = _sentinel(scheduler, q)
     out = DeriveOut(
         occ=torch.empty((p, q), dtype=i32, device=dev),
@@ -263,9 +272,11 @@ def derive(qhead, qtail, qbuf, qptr, qsrf, bloom_rx, ing_occ, pfc_paused,
                 o_occ_after=out.kocc_after, o_occ=out.occ,
                 o_port_occ=out.port_occ, o_sw_occ=out.sw_occ,
                 o_qpaused=out.qpaused, o_pfc=out.pfc_paused,
-                o_rem_src=out.rem_src, n_rows=p, nq=q,
+                o_rem_src=out.rem_src, n_rows=p // lanes, nq=q,
                 pause_window=int(pause_window), sentinel=sentinel, cap=cap,
-                n_stages=s, stage_bits=b, n_switches=int(n_switches),
-                n_flows=f, backpressure=int(bool(backpressure)),
+                n_stages=s, stage_bits=b, n_switches=n_switches // lanes,
+                n_flows=f // lanes, lanes=int(lanes),
+                limit_per_lane=int(buffer_limit.dim() > 0),
+                backpressure=int(bool(backpressure)),
                 pfc=int(bool(pfc)), pfc_frac=float(pfc_frac))
     return out

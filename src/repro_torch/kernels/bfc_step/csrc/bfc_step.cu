@@ -27,9 +27,9 @@
 // rows: any queue count works) and one shared-memory atomic per row segment;
 // integer atomics make the sums independent of order. Stage B works per row:
 // threshold, blocked mask, pick. kDecide / kFused write the pause mask and
-// occ_after in a stage C over the entries again. kDerive runs as ONE thread
-// block cluster of kClusterBlocks blocks (512 threads each) over every
-// port, because PFC at port p reads the occupancy of the switch that p
+// occ_after in a stage C over the entries again. kDerive runs a fabric as
+// ONE thread block cluster of kClusterBlocks blocks (512 threads each) over
+// every port, because PFC at port p reads the occupancy of the switch that p
 // feeds, which sums ports of other switches: each block sums its own rows
 // per switch in shared memory, and after a cluster barrier every block adds
 // up all blocks' partial sums through distributed shared memory before any
@@ -37,6 +37,17 @@
 // one SM: 35.5 us per call at the paper shape, more than half of it the
 // per-entry instructions of 12288 entries on one SM.) occ_after is written
 // as occ in stage A and the picked queue is decremented in stage B.
+//
+// Lanes. A sweep batch is K fabrics laid side by side (sim/phases/ctx.py):
+// lane k owns rows [k*P, (k+1)*P), flows [k*F, (k+1)*F) and switches
+// [k*NSW, (k+1)*NSW), and the flow ids in qbuf and the switch ids in
+// port_switch and feeds are already the batch's. kDerive launches one
+// cluster per lane; the cluster index is the lane, the block's rank in its
+// cluster and the cluster size split the lane's rows and flows, and the
+// switch sums are exchanged inside the cluster only. Clusters never wait on
+// each other, so K beyond the clusters the card holds at once runs in waves.
+// A non-NIC port that no switch owns adds to its lane's switch 0, and an
+// empty head slot reads its lane's flow 0, as the reference does per lane.
 //
 // Bound: at the paper shape (P=384, Q=32, F=4000) one kDerive call must move
 // ~0.3 MB (the qhead/qtail/occ/occ_after planes, the flow vectors, and per
@@ -105,9 +116,11 @@ struct Params {
   uint8_t* o_qpaused;
   uint8_t* o_pfc;
   int32_t* o_rem_src;
-  // sizes and static flags
+  // sizes and static flags; kDerive: n_rows, n_switches and n_flows are one
+  // lane's, and buffer_limit holds one value per lane if limit_per_lane
   int n_rows, nq, rows_per_block, pause_window, sentinel;
-  int cap, n_stages, stage_bits, n_switches, n_flows, backpressure, pfc;
+  int cap, n_stages, stage_bits, n_switches, n_flows, lanes, limit_per_lane;
+  int backpressure, pfc;
   float pfc_frac;
 };
 
@@ -155,9 +168,21 @@ bfc_step_kernel(const Params a) {
   int* s_sw = s_pocc + rpb;    // kDerive: this block's rows per switch
   int* s_swt = s_sw + a.n_switches;  // kDerive: the whole cluster's
   const int nq = a.nq;
-  const int row0 = blockIdx.x * rpb;
-  const int row1 = min(a.n_rows, row0 + rpb);
-  const int nr = row1 - row0;
+  // kDerive: the lane is the cluster, its blocks split the lane's rows;
+  // kDecide / kFused: one lane, a block per kRowsPerBlock rows
+  namespace cg = cooperative_groups;
+  unsigned rank = blockIdx.x, n_blocks = gridDim.x, lane_k = 0;
+  if constexpr (kMode == kDerive) {
+    const cg::cluster_group cluster = cg::this_cluster();
+    rank = cluster.block_rank();
+    n_blocks = cluster.num_blocks();
+    lane_k = blockIdx.x / n_blocks;
+  }
+  const int lane_row0 = lane_k * a.n_rows, lane_f0 = lane_k * a.n_flows;
+  const int sw0 = lane_k * a.n_switches;
+  const int row0 = lane_row0 + rank * rpb;
+  const int row1 = min(lane_row0 + a.n_rows, row0 + rpb);
+  const int nr = max(row1 - row0, 0);
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
   const bool derive = kMode == kDerive;
@@ -177,10 +202,10 @@ bfc_step_kernel(const Params a) {
   if constexpr (kMode == kDerive) {
     if (tid < nr) mine = load_row(a, row0 + tid);
     tick = __ldg(a.t);
-    buffer_limit = __ldg(a.buffer_limit);
-    const int per_block = (a.n_flows + gridDim.x - 1) / gridDim.x;
-    f_first = blockIdx.x * per_block + tid;
-    if (tid < per_block && f_first < a.n_flows) {
+    buffer_limit = __ldg(a.buffer_limit + (a.limit_per_lane ? lane_k : 0));
+    const int per_block = (a.n_flows + n_blocks - 1) / n_blocks;
+    f_first = lane_f0 + rank * per_block + tid;
+    if (tid < per_block && f_first < lane_f0 + a.n_flows) {
       rem0 = __ldg(a.rem_src + f_first);
       arr0 = __ldg(a.arrival + f_first);
       size0 = __ldg(a.size + f_first);
@@ -214,7 +239,8 @@ bfc_step_kernel(const Params a) {
     if (lookup) {
       // qpaused = every stage's bit of the head packet's flow is set, and
       // the queue is non-empty: three rounds of loads, each issued for all
-      // kUnroll chunks before the next, only for non-empty queues
+      // kUnroll chunks before the next, only for non-empty queues; an empty
+      // head slot reads the lane's flow 0, as the reference does
       int hf[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -223,7 +249,7 @@ bfc_step_kernel(const Params a) {
         const int entry = o[u] > 0
             ? __ldg(a.qbuf + (static_cast<int64_t>(e[u]) * a.cap + slot))
             : -1;
-        hf[u] = max(entry >> 1, 0);
+        hf[u] = entry >= 0 ? entry >> 1 : lane_f0;
       }
       bool all[kUnroll];
 #pragma unroll
@@ -291,11 +317,11 @@ bfc_step_kernel(const Params a) {
     for (int i = tid; i < nr; i += nthr) {
       const RowOperands ro = i == tid ? mine : load_row(a, row0 + i);
       a.o_port_occ[row0 + i] = s_pocc[i];
-      if (!ro.nic) atomicAdd(s_sw + max(ro.owner, 0), s_pocc[i]);
+      if (!ro.nic) atomicAdd(s_sw + max(ro.owner - sw0, 0), s_pocc[i]);
     }
-    const int per_block = (a.n_flows + gridDim.x - 1) / gridDim.x;
-    const int f1 = min(a.n_flows, static_cast<int>(blockIdx.x) * per_block
-                                      + per_block);
+    const int per_block = (a.n_flows + n_blocks - 1) / n_blocks;
+    const int f1 = lane_f0 + min(a.n_flows, static_cast<int>(rank) * per_block
+                                                + per_block);
     for (int f = f_first; f < f1; f += nthr) {
       const bool first = f == f_first;
       const int rem = first ? rem0 : __ldg(a.rem_src + f);
@@ -306,15 +332,14 @@ bfc_step_kernel(const Params a) {
     // every block's partial switch sums, read through distributed shared
     // memory once the cluster has them all; the second barrier keeps each
     // block's shared memory alive until every block has read it
-    namespace cg = cooperative_groups;
     cg::cluster_group cluster = cg::this_cluster();
     cluster.sync();
     for (int i = tid; i < a.n_switches; i += nthr) {
       int total = 0;
-      for (unsigned b = 0; b < cluster.num_blocks(); ++b)
+      for (unsigned b = 0; b < n_blocks; ++b)
         total += cluster.map_shared_rank(s_sw, b)[i];
       s_swt[i] = total;
-      if (blockIdx.x == 0) a.o_sw_occ[i] = total;
+      if (rank == 0) a.o_sw_occ[sw0 + i] = total;
     }
     cluster.sync();
   }
@@ -335,7 +360,7 @@ bfc_step_kernel(const Params a) {
       if (a.pfc) {
         int th_here = 1 << 30;
         if (ro.feeds >= 0) {
-          const int free_buf = max(buffer_limit - s_swt[ro.feeds], 0);
+          const int free_buf = max(buffer_limit - s_swt[ro.feeds - sw0], 0);
           th_here = max(__float2int_rz(__fmul_rn(
                             a.pfc_frac, __int2float_rn(free_buf))), 2);
         }
@@ -373,17 +398,27 @@ bfc_step_kernel(const Params a) {
   }
 }
 
+// kDerive: rows of a lane per block, and the dynamic shared memory of a block
+// (per row: active count, pick, port occupancy; per switch of the lane: this
+// block's and the cluster's sums).
+int derive_rows_per_block(int n_rows) {
+  return (n_rows + kClusterBlocks - 1) / kClusterBlocks;
+}
+
+size_t derive_smem_bytes(int n_rows, int n_switches) {
+  return sizeof(int) * (3 * static_cast<size_t>(derive_rows_per_block(n_rows))
+                        + 2 * static_cast<size_t>(n_switches));
+}
+
 template <int kMode, bool kSrf>
 int launch(Params a, cudaStream_t s) {
   if (kMode == kDerive) {
-    // one cluster: the rows split over its blocks
-    a.rows_per_block = (a.n_rows + kClusterBlocks - 1) / kClusterBlocks;
+    // one cluster per lane: the lane's rows split over its blocks
+    a.rows_per_block = derive_rows_per_block(a.n_rows);
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(kClusterBlocks);
+    cfg.gridDim = dim3(kClusterBlocks * a.lanes);
     cfg.blockDim = dim3(kDeriveThreads);
-    cfg.dynamicSmemBytes =
-        sizeof(int) * (3 * static_cast<size_t>(a.rows_per_block)
-                       + 2 * static_cast<size_t>(a.n_switches));
+    cfg.dynamicSmemBytes = derive_smem_bytes(a.n_rows, a.n_switches);
     cfg.stream = s;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -404,6 +439,12 @@ int launch(Params a, cudaStream_t s) {
 }
 
 }  // namespace
+
+// Dynamic shared memory (bytes) of a kDerive block for one lane of n_rows
+// ports and n_switches switches.
+extern "C" size_t bfc_step_derive_smem_bytes(int n_rows, int n_switches) {
+  return derive_smem_bytes(n_rows, n_switches);
+}
 
 // mode: 0 decide, 1 fused, 2 derive. Launches on `stream`, does not
 // synchronise, and returns the cudaError_t of the launch (0 = success).

@@ -94,7 +94,7 @@ class DeriveOut(NamedTuple):
 def derive_ref(qhead, qtail, qbuf, qptr, qsrf, bloom_rx, ing_occ,
                pfc_paused, rem_src, fpos, arrival, size, port_switch,
                port_is_nic, feeds, buffer_limit, t, *, n_switches: int,
-               backpressure: bool, pfc: bool, scheduler: str,
+               lanes: int = 1, backpressure: bool, pfc: bool, scheduler: str,
                pfc_frac: float, pause_window: int) -> DeriveOut:
     """The simulator's per-tick switch step (phase 0).
 
@@ -102,28 +102,44 @@ def derive_ref(qhead, qtail, qbuf, qptr, qsrf, bloom_rx, ing_occ,
     flow * 2 + mark, -1 empty), qptr (P,) i32, bloom_rx (P,S,B) bool,
     ing_occ (P,) i32, pfc_paused (P,) bool, rem_src (F,) i32, t () i32.
     Flows: fpos (F,S) i32 Bloom positions, arrival, size (F,) i32.
-    Fabric: port_switch, feeds (P,) i32, port_is_nic (P,) bool,
-    buffer_limit () i32.
+    Fabric: port_switch, feeds (P,) i32 (-1: none), port_is_nic (P,)
+    bool, buffer_limit () i32, or (lanes,) when the lanes' fabrics differ.
+
+    `lanes` fabrics laid side by side (`sim.phases.ctx`: lane k owns rows
+    [k*P/lanes, ...), flows [k*F/lanes, ...) and switches [k*NSW/lanes,
+    ...), and the ids in qbuf, port_switch and feeds are the batch's) are
+    the same function on all rows: only the buffer limit, a non-NIC port
+    that no switch owns and an empty head slot see the lane axis.
 
     Queue occupancy, per-port and per-switch buffer fill, the head-of-queue
     pause bits from the received Bloom snapshot, PFC hysteresis (pause
     above the fed switch's threshold, resume below half of it), this
-    tick's flow arrivals at the sources -- and the switch decision of
-    `bfc_fused_ref` on them: PFC-paused and NIC ports are blocked."""
+    tick's flow arrivals at the sources --
+    and the switch decision of `bfc_fused_ref` on them: PFC-paused and NIC
+    ports are blocked."""
     p, q, cap = qbuf.shape
     dev = qhead.device
     occ = qtail - qhead                                    # (P, Q)
     port_occ = occ.sum(dim=1, dtype=I32)                   # (P,)
+    # a non-NIC port that no switch owns adds to its lane's switch 0, and an
+    # empty head slot reads its lane's flow 0, as the reference does within
+    # each lane (never another lane's)
+    owned = port_switch >= 0
     sw_occ = torch.zeros(n_switches, dtype=I32, device=dev).index_add(
         0, port_switch.clamp(min=0).long(),
-        torch.where(port_is_nic, 0, port_occ))             # (NSW,)
+        torch.where(port_is_nic | ~owned, 0, port_occ))    # (NSW,)
+    sw_occ.view(lanes, -1)[:, 0] += torch.where(
+        port_is_nic | owned, 0, port_occ).view(lanes, -1).sum(1, dtype=I32)
 
     head_entry = torch.gather(qbuf, 2,
                               (qhead % cap).long()[..., None])[..., 0]
-    head_f = (head_entry >> 1).clamp(min=0)
     if backpressure:
         s = fpos.shape[1]
-        head_pos = fpos[head_f]                                  # (P, Q, S)
+        head_pos = torch.where(
+            (head_entry < 0).view(lanes, -1, q, 1),
+            fpos.view(lanes, -1, s)[:, :1, None, :],
+            fpos[(head_entry >> 1).clamp(min=0)].view(lanes, -1, q, s),
+        ).view(p, q, s)                                          # (P, Q, S)
         got = bloom_rx[torch.arange(p, device=dev)[:, None, None],
                        torch.arange(s, device=dev)[None, None, :],
                        head_pos]                                 # (P, Q, S)
@@ -132,7 +148,8 @@ def derive_ref(qhead, qtail, qbuf, qptr, qsrf, bloom_rx, ing_occ,
         qpaused = torch.zeros((p, q), dtype=torch.bool, device=dev)
 
     if pfc:
-        free_buf = (buffer_limit - sw_occ).clamp(min=0)
+        free_buf = (buffer_limit.reshape(-1, 1)
+                    - sw_occ.view(lanes, -1)).clamp(min=0).view(-1)
         pfc_th = (pfc_frac * free_buf).to(I32).clamp(min=2)
         th_here = torch.where(feeds >= 0, pfc_th[feeds.clamp(min=0)],
                               1 << 30)

@@ -1,5 +1,7 @@
 """Packet-level network simulator: torch port of `repro.sim`.
 
-`engine.run` is the single-run entry point; `topology`, `workload` and
-`config` build its inputs; `metrics.summarize` turns a run into the
+`engine.run` is the single-run entry point and `sweep.run_grid` /
+`sweep.run_batch` run a grid of cases as batched simulations (the lanes
+laid side by side as one larger fabric); `topology`, `workload` and
+`config` build their inputs; `metrics.summarize` turns a run into the
 paper's FCT-slowdown metrics."""

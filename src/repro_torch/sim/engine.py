@@ -22,10 +22,18 @@ replayed, the counterpart of the reference's jitted segment `scan`; the
 host no longer issues each of a tick's ~680 launches. On the CPU ticks run
 as a Python loop of eager torch operations (`TickLoop`). The eager step
 stays reachable through `make_step`.
+
+`simulate_lanes` runs a batch of K simulations (`sim/sweep.py`) as one
+larger fabric, the K lanes laid side by side (`phases.ctx`): the state is
+the single run's layout over K times the ports, servers, switches and
+flows, with per-lane counters, histograms and emit rows, and one lane is
+exactly a single run. `to_numpy(st, lanes)` turns a batch's state into the
+reference's (K, ...) layout with lane-local ids, once per run.
 """
 from __future__ import annotations
 
 from contextlib import nullcontext
+from dataclasses import replace
 from typing import NamedTuple
 
 import numpy as np
@@ -158,15 +166,26 @@ class SimState(NamedTuple):
     qlen_hist: torch.Tensor         # (BINS,) physical queue length histogram
 
 
-def make_step(dims: TopoDims, cfg: SimConfig, n_flows: int, device):
-    """Build (env, init_state, step) for one simulation shape on `device`.
+def static_cfg(cfg: SimConfig) -> SimConfig:
+    """The part of a SimConfig that shapes the step (its protocol and
+    timing): `clos` stripped, since the fabric arrives as operands. Cases
+    that agree on it run as lanes of one batch (`sweep.run_grid`)."""
+    return replace(cfg, clos=None)
+
+
+def make_step(dims: TopoDims, cfg: SimConfig, n_flows: int, device,
+              lanes: int = 1):
+    """Build (env, init_state, step) for one simulation shape on `device`:
+    `lanes` simulations of `n_flows` flows on fabrics padded to `dims`, laid
+    side by side (one lane: a single run).
 
     `step(st, flow_ops, topo_ops) -> (next_state, emit_row)` runs the seven
     phases in order; every operand must live on `device`."""
     pc, tm = cfg.proto, cfg.timing
-    env = phases.make_env(dims, cfg, n_flows, device)
+    env = phases.make_env(dims, cfg, n_flows, device, lanes)
     dev = env.device
     P, NSRV, NSW, PROP = env.P, env.NSRV, env.NSW, env.PROP_MAX
+    lead = env.lead
     Q, CAP, PLCAP, S = env.Q, env.CAP, env.PLCAP, env.S
     F, H, RING, RRING = env.F, env.H, env.RING, env.RRING
     B = env.bparams.stage_bits
@@ -193,7 +212,7 @@ def make_step(dims: TopoDims, cfg: SimConfig, n_flows: int, device):
             qsrf=full((P, Q), BIG),
             f_q=full((F, H), -1), f_cnt=z((F, H)),
             f_paused=full((F, H), False, torch.bool),
-            d_q=full((P, NSRV), -1), d_cnt=z((P, NSRV)),
+            d_q=full((P, env.NDST), -1), d_cnt=z((P, env.NDST)),
             bloom_counts=bloom.empty_counts(env.bparams, P, device=dev),
             bloom_mid=full((P, S, B), False, torch.bool),
             bloom_rx=full((P, S, B), False, torch.bool),
@@ -209,11 +228,12 @@ def make_step(dims: TopoDims, cfg: SimConfig, n_flows: int, device):
             sfc_ring=z((RING, F)), sfc_until=z((F,)),
             nic_ptr=z((NSRV,)),
             bucket_cnt=z((NSW, cfg.ft_buckets)),
-            stat_drops=z(()), stat_collisions=z(()),
-            stat_allocs=z(()), stat_overflow=z(()),
-            stat_pauses=z(()), stat_pfc_ticks=z(()),
-            occ_hist=z((cfg.occ_bins,)), flows_hist=z((cfg.flows_bins,)),
-            qlen_hist=z((cfg.occ_bins,)),
+            stat_drops=z(lead), stat_collisions=z(lead),
+            stat_allocs=z(lead), stat_overflow=z(lead),
+            stat_pauses=z(lead), stat_pfc_ticks=z(lead),
+            occ_hist=z(lead + (cfg.occ_bins,)),
+            flows_hist=z(lead + (cfg.flows_bins,)),
+            qlen_hist=z(lead + (cfg.occ_bins,)),
         )
 
     def step(st: SimState, ops: FlowOperands, topo_ops):
@@ -228,27 +248,36 @@ def make_step(dims: TopoDims, cfg: SimConfig, n_flows: int, device):
     return env, init_state, step
 
 
-def quiescent(st: SimState, ops: FlowOperands) -> torch.Tensor:
-    """True iff no future tick can change anything but the closed-form
-    leaves `_finish_tail` reconstructs: every flow that will ever arrive
-    has completed, nothing is in flight on wires or queues, every delayed
-    feedback / retransmit credit has landed, and every backpressure signal
-    has drained (see `repro.sim.engine.quiescent`). A 0-d bool tensor."""
-    flows_done = ((st.done >= 0) | (ops.arrival >= PHANTOM_ARRIVAL)).all()
-    net_empty = ((st.wire_f < 0).all()
-                 & (st.qtail == st.qhead).all()
-                 & (st.f_cnt == 0).all()
-                 & (st.ack_ring == 0).all()
-                 & (st.mark_ring == 0).all()
-                 & (st.u_ring == 0.0).all()
-                 & (st.retx_ring == 0).all()
-                 & (st.sfc_ring == 0).all())
-    signals_clear = ((st.pl_tail == st.pl_head).all()
-                     & (st.bloom_counts == 0).all()
-                     & ~st.bloom_mid.any() & ~st.bloom_rx.any()
-                     & ~st.f_paused.any()
-                     & ~st.pfc_paused.any()
-                     & (st.ing_occ == 0).all())
+def quiescent(env, st: SimState, ops: FlowOperands) -> torch.Tensor:
+    """Per lane, True iff no future tick can change anything but the
+    closed-form leaves `_finish_tail` reconstructs: every flow that will
+    ever arrive has completed, nothing is in flight on wires or queues,
+    every delayed feedback / retransmit credit has landed, and every
+    backpressure signal has drained (see `repro.sim.engine.quiescent`). A
+    (lanes,) bool tensor."""
+    K = env.lanes
+
+    def rows(x):                  # lane-contiguous leading axis
+        return x.reshape(K, -1).all(1)
+
+    def ring(x):                  # (RING, lanes * F)
+        return x.reshape(x.shape[0], K, -1).all(2).all(0)
+
+    flows_done = rows((st.done >= 0) | (ops.arrival >= PHANTOM_ARRIVAL))
+    net_empty = (rows(st.wire_f < 0)
+                 & rows(st.qtail == st.qhead)
+                 & rows(st.f_cnt == 0)
+                 & ring(st.ack_ring == 0)
+                 & ring(st.mark_ring == 0)
+                 & ring(st.u_ring == 0.0)
+                 & ring(st.retx_ring == 0)
+                 & ring(st.sfc_ring == 0))
+    signals_clear = (rows(st.pl_tail == st.pl_head)
+                     & rows(st.bloom_counts == 0)
+                     & rows(~st.bloom_mid) & rows(~st.bloom_rx)
+                     & rows(~st.f_paused)
+                     & rows(~st.pfc_paused)
+                     & rows(st.ing_occ == 0))
     return flows_done & net_empty & signals_clear
 
 
@@ -263,7 +292,10 @@ def _finish_tail(env, st: SimState, emits, topo_ops, n_ticks: int,
     DCQCN/FairQ token refill and the epoch-timer laws), which are replayed
     with zero feedback through the SAME `phases.cc_laws` the live feedback
     phase uses. With tracing on, the constant row comes from evaluating
-    `step` once on the quiescent state. Writes `emits[active:]` in place."""
+    `step` once on the quiescent state. Writes `emits[active:]` in place.
+    In a batch every lane is quiescent at `active` (each lane's own
+    active tick may be earlier: stepping a quiescent lane on to `active`
+    is what this closed form reconstructs)."""
     pc, F = env.cfg.proto, env.F
     zero_i = torch.zeros((F,), dtype=I32, device=env.device)
     zero_f = torch.zeros((F,), dtype=F32, device=env.device)
@@ -417,11 +449,28 @@ def simulate(dims: TopoDims, cfg: SimConfig, flow_ops: FlowOperands,
     the CPU they step eagerly (`TickLoop`). Runs under
     `torch.inference_mode` (no autograd bookkeeping per op), so the
     returned tensors are inference tensors."""
+    st, emits, active = simulate_lanes(dims, cfg, flow_ops, topo_ops,
+                                       n_ticks, 1, segment=segment,
+                                       early_exit=early_exit)
+    return st, emits, int(active[0])
+
+
+def simulate_lanes(dims: TopoDims, cfg: SimConfig, flow_ops: FlowOperands,
+                   topo_ops, n_ticks: int, lanes: int, *,
+                   segment: int = DEFAULT_SEGMENT, early_exit: bool = True):
+    """`simulate` of `lanes` simulations laid side by side (operands
+    stacked by `sweep.stack_operands` / `sweep.stack_topos`, fabrics
+    padded to `dims`): one step, one graph and one fused switch step
+    launch per tick for all lanes. Returns `(state, emits[T, *lead, W],
+    active_ticks)` with ``lead`` = (lanes,) (() for one lane) and
+    `active_ticks` a (lanes,) numpy array: each lane's own active tick,
+    as the reference's vmapped runner gives it."""
     with torch.inference_mode():
-        env, init_state, step = make_step(dims, cfg,
-                                          flow_ops.arrival.shape[0],
-                                          flow_ops.arrival.device)
-        emits = torch.zeros((int(n_ticks), emit_width(cfg, dims)),
+        env, init_state, step = make_step(
+            dims, cfg, flow_ops.arrival.shape[0] // lanes,
+            flow_ops.arrival.device, lanes)
+        emits = torch.zeros((int(n_ticks),) + env.lead
+                            + (emit_width(cfg, dims),),
                             dtype=I32, device=env.device)
         runner = TickGraph if env.device.type == "cuda" else TickLoop
         ticks = runner(step, init_state(), flow_ops, topo_ops, emits)
@@ -437,34 +486,94 @@ def emit_width(cfg: SimConfig, dims: TopoDims) -> int:
 def run_ticks(env, ticks: TickLoop, step, flow_ops, topo_ops, n_ticks: int,
               segment: int = DEFAULT_SEGMENT, early_exit: bool = True):
     """The segmented runner over `ticks` (a `TickLoop` or `TickGraph` whose
-    state is the initial state and whose emits are (n_ticks, W)): `simulate`
-    without the set-up."""
+    state is the initial state and whose emits are (n_ticks, *lead, W)):
+    `simulate_lanes` without the set-up. The active ticks come back as a
+    (lanes,) numpy array.
+
+    Each lane's active tick is the reference's vmapped while-loop's: the
+    first segment boundary at which the lane is quiescent (the K bits are
+    read once per segment, outside any graph), or the horizon. The batch
+    steps on while any lane is active; a quiescent lane stepped past its
+    own boundary changes only what `_finish_tail` reconstructs in closed
+    form, so running that tail from the batch's tick gives every lane the
+    state and emits of its own."""
     emits = ticks.emits
+    active = np.full(env.lanes, -1, dtype=np.int64)     # -1: still active
     if not early_exit or n_ticks == 0:
         ticks.advance(0, n_ticks)
-        return ticks.state, emits, n_ticks
+        active[:] = n_ticks
+        return ticks.state, emits, active
 
     # a segment never exceeds the horizon
     seg = min(segment, n_ticks)
     n_full, rem = divmod(n_ticks, seg)
     t = 0
-    while t < n_full * seg and not bool(quiescent(ticks.state, flow_ops)):
+
+    def all_quiescent() -> bool:
+        quiet = quiescent(env, ticks.state, flow_ops).cpu().numpy()
+        active[(active < 0) & quiet] = t
+        return bool((active >= 0).all())
+
+    while t < n_full * seg and not all_quiescent():
         ticks.advance(t, seg)
         t += seg
-    if rem and not bool(quiescent(ticks.state, flow_ops)):
+    if rem and not all_quiescent():
         # horizon not a segment multiple: run the remainder unless the loop
         # already went quiescent (then the tail covers it)
         ticks.advance(t, rem)
         t += rem
-    active = t
-    st = _finish_tail(env, ticks.state, emits, topo_ops, n_ticks, active,
+    active[active < 0] = t
+    st = _finish_tail(env, ticks.state, emits, topo_ops, n_ticks, t,
                       step, flow_ops)
     return st, emits, active
 
 
-def to_numpy(st: SimState) -> SimState:
-    """A SimState with every leaf copied to a host numpy array."""
-    return SimState(*(leaf.detach().cpu().numpy() for leaf in st))
+# How a batch lays out each SimState leaf's lane axis on the device (see
+# `to_numpy`): the leading axis holds the lanes' rows one after another,
+# the feedback rings' second axis holds the lanes' flows, the counters and
+# histograms lead with the lane axis itself (absent for one lane), and `t`
+# is the batch's.
+_RINGS = frozenset({"ack_ring", "mark_ring", "u_ring", "retx_ring",
+                    "sfc_ring"})
+_PER_LANE = frozenset({"stat_drops", "stat_collisions", "stat_allocs",
+                       "stat_overflow", "stat_pauses", "stat_pfc_ticks",
+                       "occ_hist", "flows_hist", "qlen_hist"})
+# leaves holding the batch's flow ids: (flow * 2 + mark) entries and flow
+# ids, -1 where empty, and the NIC's DRR pointer (flow + 1; 0 before the
+# first pick), each with (the factor of the lane's flow offset, the least
+# value that holds an id)
+_FLOW_IDS = {"qbuf": (2, 0), "wire_f": (2, 0), "pl": (1, 0),
+             "nic_ptr": (1, 1)}
+
+
+def to_numpy(st: SimState, lanes: int = 0) -> SimState:
+    """A SimState with every leaf copied to a host numpy array. Given the
+    lane count of a batch (`simulate_lanes`), in the reference's batched
+    layout instead: every leaf (lanes, ...) with lane-local ids, as
+    `repro.sim.sweep.run_batch` returns it."""
+    host = SimState(*(leaf.detach().cpu().numpy() for leaf in st))
+    if not lanes:
+        return host
+    K, F = lanes, host.done.shape[0] // lanes
+    n_lead = host.stat_drops.ndim
+    lane = np.arange(K)
+    out = {}
+    for name, v in host._asdict().items():
+        if name == "t":
+            v = np.full(K, v, v.dtype)
+        elif name in _RINGS:
+            v = np.ascontiguousarray(
+                v.reshape(v.shape[0], K, -1).swapaxes(0, 1))
+        elif name in _PER_LANE:
+            v = v.reshape((K,) + v.shape[n_lead:])
+        else:
+            v = v.reshape((K, -1) + v.shape[1:])
+        if name in _FLOW_IDS:
+            factor, floor = _FLOW_IDS[name]
+            off = (factor * F * lane).reshape((K,) + (1,) * (v.ndim - 1))
+            v = np.where(v >= floor, v - off, v).astype(v.dtype)
+        out[name] = v
+    return SimState(**out)
 
 
 def run(topo: Topology, flows, cfg: SimConfig, n_ticks: int, *,

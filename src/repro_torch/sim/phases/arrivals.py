@@ -20,9 +20,9 @@ import torch
 from ...core import bloom
 from ...core.hashing import as_u32, hash_u32
 from .ctx import (BIG, F32, I32, PhaseEnv, StepCtx, build_layout,
-                  counts_per_key, fma, pairwise_rank, recip, scatter_add,
-                  scatter_max, scatter_min, scatter_set, segment_sum,
-                  subset_rank, take_col)
+                  counts_per_key, fma, lane_scalar, lane_sum, pairwise_rank,
+                  recip, scatter_add, scatter_max, scatter_min, scatter_set,
+                  segment_sum, subset_rank, take_col)
 
 # argsorts in one arrival step (the ONE `build_layout` call below)
 SORTS_PER_TICK = 1
@@ -40,26 +40,49 @@ def _last_writer(key, live, n_keys):
     return live & (top[torch.where(live, key, 0)] == lane)
 
 
+def _wires(env: PhaseEnv, st, topo, new_entry, new_hop):
+    """(arriving entries, arriving hops, wire_f, wire_hop): read this tick's
+    slot of every wire and write the new transmissions there. Wires are
+    (P, PROP_MAX) rings wrapping at the fabric's link delay, so a packet
+    written now resurfaces exactly `prop_ticks` ticks later. One slot when
+    every lane has the same delay (`prop_ticks` 0-d); else a slot per lane."""
+    K = env.lanes
+    if topo.prop_ticks.dim() == 0:
+        slot = (st.t % topo.prop_ticks).view(1).long()
+        return (take_col(st.wire_f, slot[0]), take_col(st.wire_hop, slot[0]),
+                st.wire_f.index_copy(1, slot, new_entry[:, None]),
+                st.wire_hop.index_copy(1, slot, new_hop[:, None]))
+    slot = (st.t % topo.prop_ticks).long().view(K, 1, 1).expand(
+        K, env.dims.n_ports, 1)
+    wf = st.wire_f.view(K, -1, env.PROP_MAX)
+    wh = st.wire_hop.view(K, -1, env.PROP_MAX)
+    return (wf.gather(2, slot).view(-1), wh.gather(2, slot).view(-1),
+            wf.scatter(2, slot, new_entry.view(slot.shape)).view(
+                st.wire_f.shape),
+            wh.scatter(2, slot, new_hop.view(slot.shape)).view(
+                st.wire_hop.shape))
+
+
 def arrivals(env: PhaseEnv, st, ops, topo, ctx: StepCtx) -> StepCtx:
     pc, tm = env.cfg.proto, env.cfg.timing
     P, Q, F, H, CAP = env.P, env.Q, env.F, env.H, env.CAP
-    NSRV, PLCAP = env.NSRV, env.PLCAP
+    NDST, PLCAP = env.NDST, env.PLCAP
     ar = env.ar
     p_ar = ar.p
     t = ctx.t
 
     # ---- write wires / read arrivals ----------------------------------------
-    # wires are (P, PROP_MAX) rings wrapping at the fabric's link delay, so a
-    # packet written now resurfaces exactly `prop_ticks` ticks later
-    slot = (t % topo.prop_ticks).view(1).long()
-    arr_entry = take_col(st.wire_f, slot[0])          # packets arriving now
-    arr_hop = take_col(st.wire_hop, slot[0])
     new_entry = torch.where(ctx.can_tx, ctx.tx_entry, -1)
     new_hop = torch.where(ctx.can_tx, ctx.tx_hop, 0)
-    new_entry = torch.cat([torch.where(ctx.nic_tx, ctx.nic_sel * 2,
-                                       new_entry[:NSRV]), new_entry[NSRV:]])
-    wire_f = st.wire_f.index_copy(1, slot, new_entry[:, None])
-    wire_hop = st.wire_hop.index_copy(1, slot, new_hop[:, None])
+    # each lane's servers transmit from its first NSRV ports
+    by_lane = new_entry.view(env.lanes, -1)
+    nsrv = env.dims.n_servers
+    nic_tx = ctx.nic_tx.view(env.lanes, nsrv)
+    new_entry = torch.cat([torch.where(nic_tx, (ctx.nic_sel * 2).view(
+        nic_tx.shape), by_lane[:, :nsrv]), by_lane[:, nsrv:]],
+        dim=1).view(-1)
+    arr_entry, arr_hop, wire_f, wire_hop = _wires(env, st, topo, new_entry,
+                                                  new_hop)
 
     a_valid = arr_entry >= 0                          # (P,) indexed by u
     a_f = (arr_entry >> 1).clamp(min=0)
@@ -77,8 +100,9 @@ def arrivals(env: PhaseEnv, st, ops, topo, ctx: StepCtx) -> StepCtx:
         & (st.done[a_f] < 0)
     done = scatter_set(st.done, (torch.where(just_done, a_f, F),), t)
     # feedback scatter (ACK + ECN echo + HPCC INT); the one-way feedback
-    # delay derives from the fabric's link delay
-    fb_delay = ops.hops[a_f] * topo.prop_ticks + 1
+    # delay derives from the link delay of the arrival's lane
+    fb_delay = (ops.hops[a_f].view(env.lanes, -1)
+                * lane_scalar(topo.prop_ticks) + 1).view(-1)
     fb_slot = (t + fb_delay) % env.RING
     ack_ring = scatter_add(st.ack_ring, (fb_slot, a_f), is_delivery.to(I32))
     mark_ring = scatter_add(st.mark_ring, (fb_slot, a_f),
@@ -109,7 +133,8 @@ def arrivals(env: PhaseEnv, st, ops, topo, ctx: StepCtx) -> StepCtx:
     sw_arr = topo.port_switch[p_arr].clamp(min=0)     # target switch
     # buffer-limit check (serialize same-switch arrivals)
     rank_sw = pairwise_rank(sw_arr, is_sw_arr, ar.before)
-    room = (ctx.sw_occ[sw_arr] + rank_sw) < topo.buffer_limit
+    room = ((ctx.sw_occ[sw_arr] + rank_sw).view(env.lanes, -1)
+            < lane_scalar(topo.buffer_limit)).view(-1)
     # queue assignment
     f_cnt, f_q = ctx.f_cnt, ctx.f_q
     d_cnt, d_q = ctx.d_cnt, ctx.d_q
@@ -190,14 +215,14 @@ def arrivals(env: PhaseEnv, st, ops, topo, ctx: StepCtx) -> StepCtx:
         d_cnt = scatter_add(d_cnt, (p_arr, dst_a), accept.to(I32))
         # two arrivals for one (port, dst) can pick different queues in
         # one tick: the last lane wins, as in a sequential scatter
-        win = _last_writer(p_arr * NSRV + dst_a, accept, P * NSRV)
+        win = _last_writer(p_arr * NDST + dst_a, accept, P * NDST)
         d_q = scatter_set(d_q, (torch.where(win, p_arr, P), dst_a), a_q)
     # hash-table activation + overflow stat
     act = accept & was_zero
     fb_a = ops.fbucket[a_f]
     prev_bucket = ctx.bucket_cnt[sw_arr, fb_a]
-    overflow_ev = (act & (prev_bucket >= env.cfg.ft_bucket_size)).sum(
-        dtype=I32)
+    overflow_ev = lane_sum(env, act & (prev_bucket
+                                       >= env.cfg.ft_bucket_size))
     bucket_cnt = scatter_add(ctx.bucket_cnt, (sw_arr, fb_a), act.to(I32))
     # PFC ingress accounting: the arrival index IS the upstream port
     ing_occ = ctx.ing_occ + accept.to(I32)
@@ -223,9 +248,9 @@ def arrivals(env: PhaseEnv, st, ops, topo, ctx: StepCtx) -> StepCtx:
         pl = scatter_set(pl, (torch.where(over, p_arr, P), a_q, pl_pos), a_f)
         pl_tail = pl_tail + counts_per_key(
             layout.key, over, P * Q).reshape(P, Q)
-        n_pauses = over.sum(dtype=I32)
+        n_pauses = lane_sum(env, over)
     else:
-        n_pauses = torch.zeros((), dtype=I32, device=env.device)
+        n_pauses = torch.zeros(env.lead, dtype=I32, device=env.device)
 
     # drops: schedule a retransmit credit after RTO
     retx_slot = (t + tm.rto_ticks) % env.RRING

@@ -17,8 +17,8 @@ from __future__ import annotations
 import torch
 
 from ...core import bloom
-from .ctx import (I32, PhaseEnv, StepCtx, hop_of_port, scatter_max,
-                  scatter_set)
+from .ctx import (I32, PhaseEnv, StepCtx, hop_of_port, lane_sum,
+                  scatter_max, scatter_set)
 
 
 def control(env: PhaseEnv, st, ops, topo, ctx: StepCtx) -> StepCtx:
@@ -63,7 +63,7 @@ def control(env: PhaseEnv, st, ops, topo, ctx: StepCtx) -> StepCtx:
 
     # SFC: near-source pause signalling (see module docstring)
     sfc_ring = st.sfc_ring
-    n_sfc = torch.zeros((), dtype=I32, device=env.device)
+    n_sfc = torch.zeros(env.lead, dtype=I32, device=env.device)
     if pc.source_signal:
         H = env.H
         ports = ops.routes.clamp(min=0)                          # (F, H)
@@ -71,13 +71,15 @@ def control(env: PhaseEnv, st, ops, topo, ctx: StepCtx) -> StepCtx:
         congested = (is_tau & (st.f_cnt > 0) & (ops.routes >= 0)
                      & (pocc > pc.sfc_threshold))                # (F, H)
         dur = pocc.clamp(1, pc.sfc_max_pause)                    # (F, H)
-        # upstream wire distance: hop h's switch is h links from the NIC
+        # upstream wire distance: hop h's switch is h links from the NIC,
+        # at the link delay of the flow's lane
         delay = (torch.arange(H, dtype=I32, device=env.device)
-                 * topo.prop_ticks + 1)                          # (H,)
-        slot = (ctx.t + delay) % env.RING                        # (H,)
-        sfc_ring = scatter_max(sfc_ring, (slot[None, :], ar.f[:, None]),
-                               dur, congested)
-        n_sfc = congested.sum(dtype=I32)
+                 * topo.prop_ticks.reshape(-1, 1, 1) + 1)       # (K|1, 1, H)
+        slot = (ctx.t + delay) % env.RING
+        lane_fh = (env.lanes, -1, H)
+        sfc_ring = scatter_max(sfc_ring, (slot, ar.f.view(lane_fh[:2] + (1,))),
+                               dur.view(lane_fh), congested.view(lane_fh))
+        n_sfc = lane_sum(env, congested)
 
     return ctx._replace(bloom_counts=bloom_counts, bloom_mid=bloom_mid,
                         bloom_rx=bloom_rx, pl=pl, pl_head=pl_head,

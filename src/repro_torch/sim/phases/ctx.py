@@ -6,6 +6,18 @@ and the index ranges every tick reuses; `StepCtx` carries the values phases
 hand to each other within one tick. Fields a phase has not produced yet are
 None, so misordered phase composition fails loudly.
 
+Lanes. A batch of K simulations (`sim/sweep.py`) runs as ONE larger
+fabric: K disjoint copies of the padded fabric laid side by side, lane k
+owning ports [k*P, (k+1)*P), servers [k*NSRV, ...), switches
+[k*NSW, ...) and flows [k*F, ...). The lane offsets are put into the
+operands' id tables once, when the batch is stacked, so the phases
+compute on the batch exactly as on one fabric, and one lane is today's
+layout. Only what is reduced per lane sees the lane axis, through
+reshapes to ``env.lead + (-1,)`` (``lead`` is () for one lane): the
+pairwise ranks, the event counters, the histograms, the emit row and
+the per-lane scalars of `TopoOperands` (`lane_scalar`). The drop index
+of a scatter is the batch total (`env.F`, `env.P`), never a lane's.
+
 JAX semantics the helpers below carry over, because the phases rely on
 them:
 
@@ -49,20 +61,23 @@ FLT_MIN = float(np.finfo(np.float32).tiny)   # smallest normal float32
 
 
 class Ranges(NamedTuple):
-    """Index ranges reused every tick (int32 on the env's device)."""
-    p: torch.Tensor      # (P,)
+    """Index ranges and tables reused every tick (int32 on the env's
+    device), all made by `make_env`."""
+    p: torch.Tensor      # (P,) every port of the batch
     q: torch.Tensor      # (Q,)
     s: torch.Tensor      # (S,)
-    f: torch.Tensor      # (F,)
-    srv: torch.Tensor    # (NSRV,)
-    before: torch.Tensor  # (P, P) bool: column index < row index
+    f: torch.Tensor      # (F,) every flow of the batch
+    srv: torch.Tensor    # (NSRV,) the NIC port of each server
+    before: torch.Tensor  # (P_lane, P_lane) bool: column index < row index
 
 
 class PhaseEnv(NamedTuple):
-    """Constants shared by every phase of one simulation."""
+    """Constants shared by every phase of one simulation (or one batch of
+    `lanes` simulations laid side by side; see the module docstring)."""
     cfg: SimConfig           # .clos is unused — topology arrives as operands
-    dims: TopoDims
-    F: int                   # (padded) flow count
+    dims: TopoDims           # one lane's (padded) fabric
+    lanes: int
+    F: int                   # (padded) flow count of the whole batch
     RING: int                # feedback ring length (worst-case delay + 2)
     RRING: int               # retransmit ring length (rto + 1)
     bparams: bloom.BloomParams
@@ -70,16 +85,30 @@ class PhaseEnv(NamedTuple):
     ar: Ranges
 
     @property
+    def lead(self) -> tuple:
+        """The lane axis of per-lane values: () for one lane."""
+        return () if self.lanes == 1 else (self.lanes,)
+
+    @property
+    def F_LANE(self) -> int:
+        return self.F // self.lanes
+
+    @property
     def P(self) -> int:
-        return self.dims.n_ports
+        return self.lanes * self.dims.n_ports
 
     @property
     def NSRV(self) -> int:
+        return self.lanes * self.dims.n_servers
+
+    @property
+    def NDST(self) -> int:
+        """Destinations per lane: the width of the (port, dst) tables."""
         return self.dims.n_servers
 
     @property
     def NSW(self) -> int:
-        return self.dims.n_switches
+        return self.lanes * self.dims.n_switches
 
     @property
     def PROP_MAX(self) -> int:
@@ -110,26 +139,62 @@ class PhaseEnv(NamedTuple):
         return self.cfg.timing.tau_ticks
 
 
-def make_env(dims: TopoDims, cfg: SimConfig, n_flows: int,
-             device) -> PhaseEnv:
+def _check_int32(dims: TopoDims, cfg: SimConfig, n_flows: int,
+                 lanes: int) -> None:
+    """Raise unless every packed key and flat index of a `lanes`-lane batch
+    stays below int32 max: the arrival layout's (port, queue) key, the
+    (port, dst) writer key, the NIC's (DRR score, flow) key and the flat
+    index of the largest state tensor."""
+    pc = cfg.proto
+    P, F = lanes * dims.n_ports, lanes * n_flows
+    need = {"the arrival sort key (port * Q + queue)": P * pc.n_queues,
+            "the (port, dst) key": P * dims.n_servers,
+            "the NIC's packed (score, flow) key": n_flows * F,
+            "a queue ring's flat index":
+                P * pc.n_queues * max(pc.queue_cap, pc.pauselist_cap)}
+    for what, n in need.items():
+        if n > INT32_MAX:
+            raise ValueError(f"{lanes} lanes of {dims} with {n_flows} flows "
+                             f"overflow int32 in {what} ({n})")
+
+
+def make_env(dims: TopoDims, cfg: SimConfig, n_flows: int, device,
+             lanes: int = 1) -> PhaseEnv:
+    """The env of `lanes` simulations of `n_flows` flows each on fabrics
+    padded to `dims`, laid side by side (one lane: a single run)."""
     # feedback ring sized for the worst-case one-way delay (a ring is a pure
     # delay line, so oversizing it never changes when feedback lands)
+    _check_int32(dims, cfg, n_flows, lanes)
     device = torch.device(device)
-    P = dims.n_ports
 
     def rng(n):
         return torch.arange(n, dtype=I32, device=device)
 
-    p = rng(P)
-    ar = Ranges(p=p, q=rng(cfg.proto.n_queues), s=rng(cfg.bloom_stages),
-                f=rng(n_flows), srv=rng(dims.n_servers),
+    p = rng(dims.n_ports)
+    # lane k's servers transmit from ports k*P + [0, NSRV)
+    nic = (rng(lanes)[:, None] * dims.n_ports
+           + rng(dims.n_servers)[None, :]).reshape(-1)
+    ar = Ranges(p=rng(lanes * dims.n_ports), q=rng(cfg.proto.n_queues),
+                s=rng(cfg.bloom_stages), f=rng(lanes * n_flows), srv=nic,
                 before=p[None, :] < p[:, None])
-    return PhaseEnv(cfg=cfg, dims=dims, F=int(n_flows),
+    return PhaseEnv(cfg=cfg, dims=dims, lanes=int(lanes),
+                    F=int(lanes * n_flows),
                     RING=MAX_HOPS * dims.prop_max + 2,
                     RRING=cfg.timing.rto_ticks + 1,
                     bparams=bloom.BloomParams(cfg.bloom_stages,
                                               cfg.bloom_stage_bits),
                     device=device, ar=ar)
+
+
+def lane_sum(env: PhaseEnv, x):
+    """Per-lane int32 sum of a lane-contiguous tensor: shape ``env.lead``."""
+    return x.reshape(*env.lead, -1).sum(-1, dtype=I32)
+
+
+def lane_scalar(x):
+    """A per-lane scalar of `TopoOperands` (0-d when every lane agrees,
+    else (K,)) shaped to broadcast over a (lanes, n) view."""
+    return x.reshape(-1, 1)
 
 
 class StepCtx(NamedTuple):
@@ -346,11 +411,15 @@ def segment_min(vals, seg, num):
 
 def pairwise_rank(keys, valid, before):
     """rank[i] = #{j < i : valid[j] and keys[j] == keys[i]} for valid lanes
-    (serialization), via the closed O(N^2) pairwise count (no sort).
-    `before` is the (N, N) mask ``j < i`` (`PhaseEnv.ar.before`)."""
-    rank = ((keys[None, :] == keys[:, None]) & before
-            & valid[None, :]).sum(dim=1, dtype=I32)
-    return rank * valid
+    (serialization), via the closed O(N^2) pairwise count (no sort), within
+    each block of N = ``before.shape[0]`` entries (a batch lane's ports:
+    the count stays (K, N, N), never (K*N)^2). `before` is the (N, N) mask
+    ``j < i`` (`PhaseEnv.ar.before`)."""
+    n = before.shape[0]
+    k, v = keys.reshape(-1, n), valid.reshape(-1, n)
+    rank = ((k[:, None, :] == k[:, :, None]) & before
+            & v[:, None, :]).sum(dim=2, dtype=I32)
+    return (rank * v).reshape(-1)
 
 
 class ArrivalLayout(NamedTuple):
@@ -412,7 +481,8 @@ def derive_operands(env: PhaseEnv, st, ops, topo):
             st.ing_occ, st.pfc_paused, st.rem_src, ops.fpos, ops.arrival,
             ops.size, topo.port_switch, topo.port_is_nic, topo.feeds,
             topo.buffer_limit, st.t)
-    kwargs = dict(n_switches=env.NSW, backpressure=pc.backpressure,
+    kwargs = dict(n_switches=env.NSW, lanes=env.lanes,
+                  backpressure=pc.backpressure,
                   pfc=pc.pfc, scheduler=pc.scheduler, pfc_frac=pc.pfc_frac,
                   pause_window=env.cfg.timing.pause_window)
     return args, kwargs

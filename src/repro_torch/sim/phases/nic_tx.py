@@ -18,7 +18,7 @@ from .ctx import (F32, I32, INT32_MAX, PhaseEnv, StepCtx, scatter_add,
 
 def nic_tx(env: PhaseEnv, st, ops, topo, ctx: StepCtx) -> StepCtx:
     pc = env.cfg.proto
-    F, NSRV = env.F, env.NSRV
+    F, F_LANE, NSRV = env.F, env.F_LANE, env.NSRV
     ar = env.ar
     win_proto = pc.cc in ("dctcp", "hpcc", "fixed")
     rate_proto = pc.cc in ("dcqcn", "fairq")
@@ -54,8 +54,11 @@ def nic_tx(env: PhaseEnv, st, ops, topo, ctx: StepCtx) -> StepCtx:
                              NSRV)
         nic_ptr = st.nic_ptr          # DRR pointer unused under SRPT
     else:
-        # per-server DRR over flows (packed segment-min; F*F fits int32)
-        score = (f_ar - st.nic_ptr[ops.src]) % F
+        # per-server DRR over flows (packed segment-min of (score, flow);
+        # F_LANE * F fits int32, `ctx.make_env` checks). A server's flows
+        # are its lane's, and the pointer is a flow id of that lane (or 0),
+        # so the score modulo the lane's flow count is the lane's own.
+        score = (f_ar - st.nic_ptr[ops.src]) % F_LANE
         packed_f = torch.where(elig_f, score * F + f_ar, INT32_MAX)
         best_f = segment_min(packed_f, ops.src, NSRV)
         best_f = torch.where(best_f < INT32_MAX, best_f % F, INT32_MAX)

@@ -9,18 +9,33 @@ PFC-paused ports, probe-flow progress, then any trace channels).
 
 `tail_hist` / `tail_emit_row` are the closed forms of the same sampling
 over a *quiescent* suffix of the horizon, used by the engine to rebuild
-the skipped drain tail bit-identically to stepping it."""
+the skipped drain tail bit-identically to stepping it.
+
+In a batch of lanes every counter, histogram and emit column is per lane
+(leading axis ``env.lead``): reductions run over (lanes, n) views of the
+lane-contiguous ports, switches and flows."""
 from __future__ import annotations
 
 import torch
 
 from ..trace.capture import capture_row
-from .ctx import I32, PhaseEnv, StepCtx, scatter_add, segment_sum
+from .ctx import (I32, PhaseEnv, StepCtx, lane_scalar, lane_sum,
+                  scatter_add, segment_sum)
 
 
 def _add_first(x, v):
-    """``x.at[0].add(v)`` for a 0-d tensor ``v``."""
-    return torch.cat([x[:1] + v, x[1:]])
+    """``x.at[..., 0].add(v)`` for a per-lane ``v``."""
+    return torch.cat([x[..., :1] + v[..., None], x[..., 1:]], dim=-1)
+
+
+def _hist_add(env: PhaseEnv, hist, bins, vals):
+    """Add `vals` at `bins` (both lane-contiguous) into each lane's row of
+    `hist` (``env.lead + (n_bins,)``): the lane is the row of the (lanes, n)
+    view, never an offset computed on the bin."""
+    if not env.lead:
+        return scatter_add(hist, (bins.reshape(-1),), vals.reshape(-1))
+    return hist.scatter_add(1, bins.reshape(env.lanes, -1).long(),
+                            vals.reshape(env.lanes, -1).to(hist.dtype))
 
 
 def tail_hist(env: PhaseEnv, st, topo, n_ticks: int):
@@ -30,25 +45,25 @@ def tail_hist(env: PhaseEnv, st, topo, n_ticks: int):
     # sample ticks are multiples of stat_every: #multiples in [t, n_ticks)
     n_samp = (n_ticks + (se - 1)) // se - (st.t + (se - 1)) // se
     occ_hist = _add_first(st.occ_hist,
-                          n_samp * topo.switch_valid.sum(dtype=I32))
+                          n_samp * lane_sum(env, topo.switch_valid))
     flows_hist = _add_first(
         st.flows_hist,
-        n_samp * (~topo.port_is_nic & topo.port_valid).sum(dtype=I32))
+        n_samp * lane_sum(env, ~topo.port_is_nic & topo.port_valid))
     # qlen_hist only counts non-empty queues — a quiescent tail adds none
     return st._replace(occ_hist=occ_hist, flows_hist=flows_hist)
 
 
 def _probe(env: PhaseEnv, st):
     if env.cfg.probe_flow >= 0:
-        return st.delivered[env.cfg.probe_flow]
-    return torch.zeros((), dtype=I32, device=env.device)
+        return st.delivered.reshape(*env.lead, -1)[..., env.cfg.probe_flow]
+    return torch.zeros(env.lead, dtype=I32, device=env.device)
 
 
 def tail_emit_row(env: PhaseEnv, st):
     """The constant emit row of a quiescent tick: zero buffer fill, zero
     PFC-paused ports, frozen probe-flow progress."""
-    zero = torch.zeros((), dtype=I32, device=env.device)
-    return torch.stack([zero, zero, _probe(env, st)])
+    zero = torch.zeros(env.lead, dtype=I32, device=env.device)
+    return torch.stack([zero, zero, _probe(env, st)], dim=-1)
 
 
 def stats(env: PhaseEnv, st, ops, topo, ctx: StepCtx):
@@ -57,22 +72,23 @@ def stats(env: PhaseEnv, st, ops, topo, ctx: StepCtx):
     t = ctx.t
 
     sample = (t % cfg.stat_every) == 0
-    occ_bin = (ctx.sw_occ * cfg.occ_bins
-               // topo.occ_ref.clamp(min=1)).clamp(0, cfg.occ_bins - 1)
-    occ_hist = scatter_add(st.occ_hist, (occ_bin,),
-                           (sample & topo.switch_valid).to(I32))
+    occ_bin = (ctx.sw_occ.view(env.lanes, -1) * cfg.occ_bins
+               // lane_scalar(topo.occ_ref).clamp(min=1)).clamp(
+                   0, cfg.occ_bins - 1)
+    occ_hist = _hist_add(env, st.occ_hist, occ_bin,
+                         (sample & topo.switch_valid).to(I32))
     # active flows per switch egress port (Fig. 10c)
     active_fh = (ctx.f_cnt > 0) & (ops.routes >= 0)
     per_port = segment_sum(active_fh.to(I32).reshape(-1),
                            ops.routes.clamp(min=0).reshape(-1), env.P)
     fl_bin = per_port.clamp(0, cfg.flows_bins - 1)
-    flows_hist = scatter_add(
-        st.flows_hist, (fl_bin,),
+    flows_hist = _hist_add(
+        env, st.flows_hist, fl_bin,
         (sample & ~topo.port_is_nic & topo.port_valid).to(I32))
     qlen_bin = (ctx.occ_new * cfg.occ_bins // max(env.CAP, 1)).clamp(
         0, cfg.occ_bins - 1)
-    qlen_hist = scatter_add(
-        st.qlen_hist, (qlen_bin.reshape(-1),),
+    qlen_hist = _hist_add(
+        env, st.qlen_hist, qlen_bin,
         (sample & (ctx.occ_new.reshape(-1) > 0)).to(I32))
 
     new_st = type(st)(
@@ -93,17 +109,18 @@ def stats(env: PhaseEnv, st, ops, topo, ctx: StepCtx):
         retx_ring=ctx.retx_ring, sfc_ring=ctx.sfc_ring,
         sfc_until=ctx.sfc_until, nic_ptr=ctx.nic_ptr,
         bucket_cnt=ctx.bucket_cnt,
-        stat_drops=st.stat_drops + ctx.dropped.sum(dtype=I32),
-        stat_collisions=st.stat_collisions + ctx.collide.sum(dtype=I32),
-        stat_allocs=st.stat_allocs + ctx.needs_alloc.sum(dtype=I32),
+        stat_drops=st.stat_drops + lane_sum(env, ctx.dropped),
+        stat_collisions=st.stat_collisions + lane_sum(env, ctx.collide),
+        stat_allocs=st.stat_allocs + lane_sum(env, ctx.needs_alloc),
         stat_overflow=st.stat_overflow + ctx.overflow_ev,
         stat_pauses=st.stat_pauses + ctx.n_pauses + ctx.n_sfc,
-        stat_pfc_ticks=st.stat_pfc_ticks + ctx.pfc_paused.sum(dtype=I32),
+        stat_pfc_ticks=st.stat_pfc_ticks + lane_sum(env, ctx.pfc_paused),
         occ_hist=occ_hist, flows_hist=flows_hist, qlen_hist=qlen_hist,
     )
-    emit = torch.stack([ctx.sw_occ.amax(), ctx.pfc_paused.sum(dtype=I32),
-                        _probe(env, st)])
+    emit = torch.stack([ctx.sw_occ.view(*env.lead, -1).amax(-1),
+                        lane_sum(env, ctx.pfc_paused), _probe(env, st)],
+                       dim=-1)
     if cfg.trace.enabled:
         # opt-in trace channels ride the emit row (sim/trace/)
-        emit = torch.cat([emit, capture_row(env, st, ops, ctx)])
+        emit = torch.cat([emit, capture_row(env, st, ops, ctx)], dim=-1)
     return new_st, emit

@@ -18,7 +18,7 @@ from .ctx import (BIG, I32, F32, PhaseEnv, StepCtx, fma, hop_of_port,
 
 def switch_tx(env: PhaseEnv, st, ops, topo, ctx: StepCtx) -> StepCtx:
     pc = env.cfg.proto
-    F, CAP, NSRV = env.F, env.CAP, env.NSRV
+    F, CAP, NDST = env.F, env.CAP, env.NDST
     ar = env.ar
     p_ar = ar.p
 
@@ -57,7 +57,7 @@ def switch_tx(env: PhaseEnv, st, ops, topo, ctx: StepCtx) -> StepCtx:
         tx_dst = ops.dst[tx_f]
         d_cnt = scatter_add(d_cnt, (p_ar, tx_dst), -can_tx.to(I32))
         d_gone = can_tx & (d_cnt[p_ar, tx_dst] == 0)
-        d_q = scatter_set(d_q, (p_ar, torch.where(d_gone, tx_dst, NSRV)),
+        d_q = scatter_set(d_q, (p_ar, torch.where(d_gone, tx_dst, NDST)),
                           -1, axis=1)
     # PFC ingress accounting (packet left the downstream buffer)
     ing_occ = scatter_add(st.ing_occ, (up_of_tx.clamp(min=0),),

@@ -1,19 +1,26 @@
 """Where a simulated tick's time goes on the card, eager and graphed.
 
     PYTHONPATH=src python -m repro_torch.sim.tick_profile [--ticks N]
+        [--lanes K] [--repeat R]
 
 Builds the paper-scale `bfc` case (`paper_case`, which `chip_smoke.py`
 runs too: 128-server / 8 ToR / 8 spine Clos, fb_hadoop at load 0.6, seed 0,
-4000 flows) and profiles `--ticks` ticks from tick `--start` (queues and
+4000 flows), or with `--lanes K` a sweep batch of K such cases (seeds 0 to
+K-1, laid side by side as `sim.sweep` stacks them: one step, one graph and
+one fused switch step launch per tick for all lanes), and profiles
+`--ticks` ticks from tick `--start` (queues and
 pause state populated) twice: stepped eagerly with `make_step`'s step, and
 through the engine's runner, which replays a captured CUDA graph of
 `engine.GRAPH_TICKS` ticks (`engine.TickGraph`). For each it prints, per
 tick: wall time, device-busy time (the sum of the CUDA kernels' execution
 intervals under `torch.profiler`), the device's idle share, the kernels
 launched, and the kernels that take the most device time; then the
-unprofiled time per tick from CUDA events around the same window. When
-the profiler records no kernels inside the graph's replays, the graphed
-tick is reported from the CUDA events alone, and the output says so.
+unprofiled time per tick from CUDA events around the window's successor,
+and the host's time to issue that window (a host stall before the card
+has work queued reads as idle there). `--repeat R` measures the graphed
+window R more times, on the ticks that follow. When the profiler records
+no kernels inside the graph's replays, the graphed tick is reported from
+the CUDA events alone, and the output says so.
 Needs a CUDA device; exits non-zero when the profiler records no device
 activity in the eager ticks.
 """
@@ -27,7 +34,7 @@ from collections import Counter
 import torch
 
 from .. import resolve_device
-from . import engine, topology, workload
+from . import engine, sweep, topology, workload
 from .config import PRESETS, SimConfig
 
 
@@ -81,8 +88,8 @@ def paper_case(seed: int = 0):
 
 def _window(run, n: int):
     """(kernels, profiled wall s, unprofiled device ms per tick from CUDA
-    events) of `run()`, which advances `n` ticks; called twice, on the
-    same ticks' successors."""
+    events, host ms to issue the unprofiled run) of `run()`, which
+    advances `n` ticks; called twice, on the same ticks' successors."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -93,40 +100,52 @@ def _window(run, n: int):
         wall = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     run()
+    issue = time.perf_counter() - t0
     stop.record()
     torch.cuda.synchronize()
-    return kernel_events(prof), wall, start.elapsed_time(stop) / n
+    return (kernel_events(prof), wall, start.elapsed_time(stop) / n,
+            issue * 1e3)
 
 
-def _unprofiled(kernels, n: int, ev_ms: float) -> None:
+def _unprofiled(kernels, n: int, ev_ms: float, issue_ms: float) -> None:
     """The unprofiled tick from CUDA events (kernels and the gaps between
-    them), and the profiled device-busy time's share of it."""
+    them), the profiled device-busy time's share of it, and the host's
+    time to issue the unprofiled window."""
     busy = sum(us for _, us in kernels) / 1e3 / n
     print(f"  unprofiled (CUDA events): {ev_ms:.4f} ms per tick; device "
           f"busy (profiled) {busy:.4f} ms of it, idle share "
-          f"{1 - busy / ev_ms:.4f}")
+          f"{1 - busy / ev_ms:.4f}; window issued in {issue_ms:.2f} ms "
+          f"host")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=256)
     ap.add_argument("--start", type=int, default=2048)
+    ap.add_argument("--lanes", type=int, default=1)
+    ap.add_argument("--repeat", type=int, default=0)
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     k = engine.GRAPH_TICKS
     if args.start % k or args.ticks % k:
         ap.error(f"--start and --ticks must be multiples of {k}")
 
-    _, topo, flows, cfg = paper_case()
+    K = args.lanes
+    cases = [paper_case(seed) for seed in range(K)]
+    _, topo, flows, cfg = cases[0]
     dims = topology.TopoDims.of(topo)
-    fops = engine.pack_flows(flows, cfg, dev)
-    tops = topology.pack_topo(topo, device=dev)
-    env, init_state, step = engine.make_step(dims, cfg, flows.n_flows, dev)
+    fops = sweep.stack_operands([c[2] for c in cases], cfg, flows.n_flows,
+                                dims, dev)
+    tops = sweep.stack_topos([topo] * K, cfg, dims, dev)
+    env, init_state, step = engine.make_step(dims, cfg, flows.n_flows, dev,
+                                             K)
     n = args.ticks
     print(f"device={torch.cuda.get_device_name(0)} the paper-scale bfc "
-          f"case, {n} ticks from tick {args.start} profiled per runner")
+          f"case, {K} lane(s) (seeds 0-{K - 1}), {n} ticks from tick "
+          f"{args.start} profiled per runner")
     with torch.inference_mode():
         # eager: make_step's step, one Python call per tick
         box = [init_state()]
@@ -136,13 +155,14 @@ def main(argv=None) -> int:
                 box[0], _ = step(box[0], fops, tops)
         for _ in range(args.start):
             box[0], _ = step(box[0], fops, tops)
-        kernels, wall, ev = _window(eager, n)
+        kernels, wall, *ev = _window(eager, n)
         ok = print_breakdown("eager tick", kernels, n, wall)
-        _unprofiled(kernels, n, ev)
+        _unprofiled(kernels, n, *ev)
 
         # graphed: the engine's runner, GRAPH_TICKS ticks per replay
-        emits = torch.zeros((args.start + 3 * n,
-                             engine.emit_width(cfg, dims)),
+        emits = torch.zeros((args.start + 2 * (1 + args.repeat) * n,)
+                            + env.lead
+                            + (engine.emit_width(cfg, dims),),
                             dtype=torch.int32, device=dev)
         ticks = engine.TickGraph(step, init_state(), fops, tops, emits)
         ticks.advance(0, args.start)
@@ -151,13 +171,14 @@ def main(argv=None) -> int:
         def graphed():
             ticks.advance(at[0], n)
             at[0] += n
-        kernels, wall, ev = _window(graphed, n)
-        if not print_breakdown(f"graphed tick ({k} ticks per replay)",
-                               kernels, n, wall):
-            print(f"graphed tick ({k} ticks per replay): the profiler "
-                  f"recorded no kernels in the replays; per tick wall "
-                  f"{wall / n * 1e3:.3f} ms")
-        _unprofiled(kernels, n, ev)
+        for i in range(1 + args.repeat):
+            kernels, wall, *ev = _window(graphed, n)
+            what = f"graphed tick ({k} ticks per replay)" + (
+                f", repeat {i}" if i else "")
+            if not print_breakdown(what, kernels, n, wall):
+                print(f"{what}: the profiler recorded no kernels in the "
+                      f"replays; per tick wall {wall / n * 1e3:.3f} ms")
+            _unprofiled(kernels, n, *ev)
     return 0 if ok else 1
 
 

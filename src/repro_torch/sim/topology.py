@@ -19,6 +19,7 @@ A flow's route is the sequence of egress ports it is *transmitted from*:
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -111,6 +112,14 @@ def build(params: ClosParams) -> Topology:
     return topo
 
 
+@functools.lru_cache(maxsize=None)
+def build_cached(params: ClosParams) -> Topology:
+    """`build(params)`, memoised on the (frozen, hashable) ClosParams: a
+    grid that names one fabric in many cases builds it once. Callers must
+    not mutate the returned Topology."""
+    return build(params)
+
+
 def routes_for_flows(topo: Topology, src: np.ndarray, dst: np.ndarray,
                      spine_choice: np.ndarray) -> np.ndarray:
     """Vectorized route computation.
@@ -152,13 +161,20 @@ class TopoDims(NamedTuple):
                    n_switches=topo.n_switches,
                    prop_max=topo.params.prop_ticks)
 
+    def union(self, other: "TopoDims") -> "TopoDims":
+        """The smallest dims both fabrics pad to (a batch's lanes)."""
+        return TopoDims(*(max(a, b) for a, b in zip(self, other)))
+
 
 class TopoOperands(NamedTuple):
     """Per-fabric tables the step reads, as tensors on one device.
 
     Shapes: (P,) / (NSW,) / () with the dims of `TopoDims`. Ports, servers
     and switches padded beyond a fabric's real counts are inert phantoms
-    (see `repro.sim.topology.TopoOperands` for the padding contract)."""
+    (see `repro.sim.topology.TopoOperands` for the padding contract). A
+    batch of K lanes (`sweep.stack_topos`) holds the K fabrics side by
+    side: (K*P,) / (K*NSW,) with the batch's switch ids, and each scalar
+    0-d when every lane agrees on it, else (K,)."""
     port_switch: torch.Tensor   # (P,) owning switch; -1 for NIC + phantom
     port_is_nic: torch.Tensor   # (P,) bool
     port_valid: torch.Tensor    # (P,) bool, False for phantom padding

@@ -8,7 +8,8 @@ keeping int32 / bool / float32. `assert_state_equal` compares two states
 leaf by leaf, bit for bit, and names the first leaf that differs.
 `random_derive_inputs` makes seeded operands of the fused switch step
 (`kernels.bfc_step.ops.derive`) at any (P, Q), for holding its kernel
-against its plain version.
+against its plain version, and `stack_derive_lanes` lays several lanes'
+operands side by side as a sweep batch holds them.
 
 LM: `params_from_jax` loads a numpy parameter tree into the port's
 parameter modules, `cache_from_jax` maps a numpy cache (stacked or per-unit
@@ -137,6 +138,42 @@ def random_derive_inputs(seed: int, p: int, q: int, device, *,
         "t": np.asarray(tick, i32),
     }
     return [torch.from_numpy(np.array(a[k])).to(device) for k in DERIVE_ARGS]
+
+
+def stack_derive_lanes(lanes, n_switches: int):
+    """The operands of ONE call of `kernels.bfc_step.ops.derive` over K
+    lanes (call it with ``lanes=K, n_switches=K * n_switches``) from K
+    single-lane operand lists in `DERIVE_ARGS` order, laid side by side as
+    `sim.sweep` stacks a batch: lane k's rows and flows follow lane k-1's,
+    its flow ids in qbuf move by k*F and its switch ids (port_switch,
+    feeds) by k * `n_switches`, -1 entries stay; the buffer limits become
+    one 0-d value when every lane has the same, else a (K,) table. Every
+    lane must be at the same tick `t`."""
+    ix = {name: i for i, name in enumerate(DERIVE_ARGS)}
+    n_flows = lanes[0][ix["fpos"]].shape[0]
+    t = lanes[0][ix["t"]]
+    if any(not torch.equal(lane[ix["t"]], t) for lane in lanes):
+        raise ValueError("the lanes of one call share one tick")
+
+    def moved(x, by):
+        return torch.where(x >= 0, x + by, x)
+
+    out = []
+    for name, vals in zip(DERIVE_ARGS, zip(*lanes)):
+        if name == "t":
+            out.append(t)
+        elif name == "buffer_limit":
+            same = all(torch.equal(v, vals[0]) for v in vals)
+            out.append(vals[0] if same else torch.stack(vals))
+        elif name == "qbuf":
+            out.append(torch.cat([moved(v, 2 * k * n_flows)
+                                  for k, v in enumerate(vals)]))
+        elif name in ("port_switch", "feeds"):
+            out.append(torch.cat([moved(v, k * n_switches)
+                                  for k, v in enumerate(vals)]))
+        else:
+            out.append(torch.cat(vals))
+    return out
 
 
 # ---- LM parameters and caches ---------------------------------------------------

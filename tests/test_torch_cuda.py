@@ -1,7 +1,9 @@
 """The port on the card: the CUDA kernels against their plain versions
-(the fused switch step on seeded states and on states stepped from the
-golden case), the graphed runner against eager stepping (a golden family
-and the paper case's first 1024 ticks), golden families and the paper case
+(the fused switch step on seeded states, one lane and up to 40 lanes of
+mixed fabrics in one launch, and on states stepped from the golden case),
+the graphed runner against eager stepping (a golden family and the paper
+case's first 1024 ticks), a batched graphed run of mixed fabrics against
+each lane's serial graphed run, golden families and the paper case
 end to end with the kernel launched once per simulated tick, and the
 reduced recurrentgemma and rwkv6 prefills through the LM kernels against
 the plain path on the CPU. Needs a CUDA device and nvcc (a CUDA kernel has no CPU
@@ -27,8 +29,9 @@ from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ref as wkv_ref  # noqa: E402
 from repro_torch.models import model  # noqa: E402
 from repro_torch.runtime import steps  # noqa: E402
-from repro_torch.sim import engine, phases, topology, workload  # noqa: E402
-from repro_torch.sim.config import PRESETS  # noqa: E402
+from repro_torch.sim import (engine, phases, sweep, topology,  # noqa: E402
+                             workload)
+from repro_torch.sim.config import PRESETS, SimConfig  # noqa: E402
 from repro_torch.sim.tick_profile import paper_case  # noqa: E402
 from repro_torch.sim.trace import golden  # noqa: E402
 
@@ -129,6 +132,33 @@ def test_derive_kernel_matches_plain_version(card, p, q, scheduler, flags,
     _assert_derive_equal(got, want, f"{flags} {scheduler} ({p},{q})")
 
 
+@pytest.mark.parametrize("flags", sorted(DERIVE_FLAGS))
+@pytest.mark.parametrize("scheduler", ["drr", "srf"])
+@pytest.mark.parametrize("lanes", [1, 3, 8, 40])
+def test_derive_kernel_lanes_match_plain_version(card, lanes, scheduler,
+                                                 flags):
+    """K lanes laid side by side in one launch (one cluster per lane; 40
+    clusters run in waves) against `derive_ref` on the same stacked
+    operands, every output equal. Each lane has its own fabric tables, and
+    lanes alternate a tight buffer of their own and the infinite one, so
+    the buffer limit is a per-lane table."""
+    p, q, nsw = 384, 32, 16
+    alone = [testing.random_derive_inputs(
+        lanes * 100 + k, p, q, card, buffer_limit=(1 << 29) if k % 2
+        else None, n_switches=nsw) for k in range(lanes)]
+    args = testing.stack_derive_lanes(alone, nsw)
+    bp, pfc = DERIVE_FLAGS[flags]
+    kw = dict(n_switches=lanes * nsw, lanes=lanes, backpressure=bp, pfc=pfc,
+              scheduler=scheduler, pfc_frac=0.11, pause_window=37)
+    before = ops.launches["bfc_fused"]
+    got = ops.derive(*args, **kw)
+    want = tref.derive_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches["bfc_fused"] == before + 1
+    assert got.occ.shape == (lanes * p, q)
+    _assert_derive_equal(got, want, f"{lanes} lanes {flags} {scheduler}")
+
+
 def _golden_operands(name, card):
     topo, flows = golden.golden_case()
     flows = workload.pad_flowset(flows, golden.GOLDEN_PAD_FLOWS)
@@ -191,6 +221,44 @@ def test_graphed_simulate_matches_eager_steps(card, case):
     assert active == n
     testing.assert_state_equal(st, want_st, f"{case} graphed vs eager")
     assert torch.equal(emits, want_emits)
+
+
+def test_batched_graphed_run_matches_serial_graphed_runs(card):
+    """A `bfc` batch of three fabrics (the golden Clos, one with more
+    ports, servers and switches and a larger buffer, one with 4-tick
+    links) through the graphed runner equals each lane's own serial
+    graphed run in every trimmed leaf, its emits and its active tick; one
+    kernel launch serves all lanes of a tick."""
+    fabrics = [golden.golden_clos(),
+               topology.ClosParams(n_servers=12, n_tor=2, n_spine=3,
+                                   switch_buffer_pkts=1024),
+               topology.ClosParams(n_servers=8, n_tor=2, n_spine=2,
+                                   prop_ticks=4, switch_buffer_pkts=512)]
+    lanes = []
+    for seed, clos in enumerate(fabrics):
+        topo = topology.build(clos)
+        wp = workload.WorkloadParams(workload="fb_hadoop", load=0.5,
+                                     seed=seed + 1)
+        lanes.append((topo, workload.generate(topo, wp, 40),
+                      SimConfig(proto=PRESETS["bfc"], clos=clos)))
+    n_ticks = max(f.horizon for _, f, _ in lanes) + 2000
+    ops.reset_launches()
+    st, emits = sweep.run_batch([t for t, _, _ in lanes],
+                                [f for _, f, _ in lanes], lanes[0][2],
+                                n_ticks, device=card)
+    active = sweep.last_active_ticks()
+    assert ops.launches["bfc_fused"] == max(active)
+    for k, (topo, flows, cfg) in enumerate(lanes):
+        dims = topology.TopoDims.of(topo)
+        s_st, s_em, s_act = engine.simulate(
+            dims, cfg, engine.pack_flows(flows, cfg, card),
+            topology.pack_topo(topo, device=card), n_ticks)
+        testing.assert_state_equal(
+            sweep.select_config(st, k, flows.n_flows, dims),
+            sweep.trim_state(engine.to_numpy(s_st), flows.n_flows, dims),
+            f"lane {k}")
+        assert np.array_equal(emits[k], s_em.cpu().numpy()), f"lane {k}"
+        assert active[k] == s_act, f"lane {k} active ticks"
 
 
 def test_paper_case_launches_once_per_active_tick(card):
